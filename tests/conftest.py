@@ -36,6 +36,11 @@ def pytest_configure(config):
         "slow: long-running chaos/bench workouts, deselected by the "
         "tier-1 run's -m 'not slow'",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device and nvcc (the PyTorch port's kernels); "
+        "skips elsewhere",
+    )
     # Reclaim /dev/shm segments leaked by SIGKILLed earlier runs (their
     # owner pids are dead): 121 GB of leaked segments after one
     # interrupted soak made later tier-1 runs OOM spuriously.
