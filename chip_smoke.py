@@ -7,27 +7,47 @@ from ``ray_tpu_torch/ops/csrc`` and then runs, failing on the first phase
 that fails:
 
 1. device: the card's name and power limit from nvidia-smi; TF32 off;
-2. build: the kernels, timed;
+2. build: both kernel sources (fused_norm.cu, flash_attention.cu), one nvcc
+   each, started together, timed;
 3. kernel vs plain version: each kernel against its plain PyTorch version
-   at the GPT-2-small shapes (R = 8 x 1024 rows, D = 768, GELU width 3072)
-   in bf16 and fp32, plus odd widths that exercise the masked tails, and
-   the device time of the kernel, the plain version and one PyTorch call
-   for the same function (the yardstick, never called by the port);
-4. the GPT-2-small train step (124M, seq 1024, batch 8, the fused-norm
-   config with dense attention) through ``measure_gpt2``: 2 warmup and
-   5 timed steps, the loss finite and falling, and every kernel launched
-   the expected number of times per step;
-5. kernel path vs plain path: loss and gradients of one batch with
-   ``fused_norm=True`` and ``=False`` from the same weights;
+   on the same inputs, and the device time of the kernel, the plain
+   version and one PyTorch call for the same function (the yardstick,
+   never called by the port):
+   - the fused-norm kernels at the GPT-2-small shapes (R = 8 x 1024 rows,
+     D = 768, GELU width 3072) in bf16 and fp32, plus odd widths that
+     exercise the masked tails;
+   - the flash kernels at the GPT-2-small shape (B=8, T=1024, H=12, D=64,
+     bf16, causal, q/k/v strided views of one [B, T, 3*768] tensor, as the
+     model passes them) and at odd shapes (T = 77 and 1000, D = 128,
+     causal=False, B=1, H=2); yardstick ``scaled_dot_product_attention``
+     forward, and its backward for the dK/dV + dQ pair;
+   - dense against flash attention, forward plus backward, at T = 512,
+     1024 and 2048 (B*H = 96, D = 64), timed only;
+4. the GPT-2-small train step (124M, seq 1024, batch 8) through
+   ``measure_gpt2``, in ``bench.py``'s ``fused`` config with flash
+   attention (the main path: 2 warmup and 5 timed steps), then with dense
+   attention (1 warmup and 3 timed steps): the loss finite and falling,
+   and every kernel launched exactly the expected number of times per
+   step, counted from 0 just before each run;
+5. kernel path vs plain path, same weights and batch (batch 4): flash +
+   fused norms, and dense + fused norms, each against fully plain (dense
+   attention, ``fused_norm=False``);
 6. one JSON line of every TPU kernel of the JAX package, ported or not;
 7. the last line, ``{"ok": true, "device": {...}}``.
 
-Tolerances: fp32 outputs within 1e-5 (forward) and 1e-4 (gradients) of the
-plain version, relative to the larger of 1 and the output's largest
-magnitude (the column sums dscale/dbias reach ~100 at R = 8192, where fp32
-sums taken in another order differ by more than 1e-4 absolute); bf16
-outputs within one bf16 ulp plus 1e-5 absolute (values near zero carry the
-fp32 rounding from before the cast); bf16 dscale/dbias by cosine > 0.9999.
+Tolerances: fused-norm fp32 outputs within 1e-5 (forward) and 1e-4
+(gradients) of the plain version, relative to the larger of 1 and the
+output's largest magnitude (the column sums dscale/dbias reach ~100 at
+R = 8192, where fp32 sums taken in another order differ by more than 1e-4
+absolute); bf16 outputs within one bf16 ulp plus 1e-5 absolute (values near
+zero carry the fp32 rounding from before the cast); bf16 dscale/dbias by
+cosine > 0.9999. Flash: lse within 1e-4 * max(1, |lse|) (fp32 sums taken
+tile by tile, in another order than the dense plain version); out, dq, dk
+and dv by cosine > 0.9999 with the max abs error printed (the kernels round
+P and dS to bf16 against the running max of each tile, the plain version
+against the row's final max, so single elements move by a bf16 ulp of
+their magnitude; the JAX package's own bf16 criterion is 0.999). Paths:
+loss within rtol 1e-2 and whole-tree gradient cosine > 0.999.
 Kernel times are CUDA-event medians of 30 launches, after the clocks are
 warmed up, with the 50 MB L2 flushed (by a read) before each, queued
 behind a device sleep so that host launch overhead is not timed. Details
@@ -50,7 +70,8 @@ import time
 from pathlib import Path
 
 OUT = Path(__file__).resolve().parent / "chip_smoke_out"
-SOURCE = "ray_tpu_torch/ops/csrc/fused_norm.cu"
+SOURCES = {"fused_norm": "ray_tpu_torch/ops/csrc/fused_norm.cu",
+           "flash_attention": "ray_tpu_torch/ops/csrc/flash_attention.cu"}
 
 # Every function of the JAX package that reaches pl.pallas_call.
 TPU_KERNELS = [
@@ -64,16 +85,27 @@ TPU_KERNELS = [
     ("flash_dkv", "ray_tpu/ops/flash_attention.py:211", "_dkv_kernel"),
     ("flash_dq", "ray_tpu/ops/flash_attention.py:269", "_dq_kernel"),
 ]
-PORTED = ("ln_fwd", "ln_bwd", "gelu_fwd", "gelu_bwd")
+NORM_KERNELS = ("ln_fwd", "ln_bwd", "gelu_fwd", "gelu_bwd")
+FLASH_KERNELS = ("flash_fwd", "flash_dkv", "flash_dq")
+PORTED = NORM_KERNELS + FLASH_KERNELS
 
-BATCH, SEQ, D_MODEL = 8, 1024, 768
+BATCH, SEQ, D_MODEL, N_HEAD = 8, 1024, 768, 12
 ROWS = BATCH * SEQ
 WARMUP, STEPS = 2, 5
+DENSE_WARMUP, DENSE_STEPS = 1, 3
 # Launches per train step of the fused config with remat="dots": two norms
-# per block plus the final one; the forward ones run again when backward
-# recomputes each block.
+# per block plus the final one, one attention per block; the forward ones
+# run again when backward recomputes each block (the checkpoint policy
+# saves matrix products only, so the flash forward is recomputed too).
 EXPECTED_PER_STEP = {"ln_fwd": 2 * 25 - 1, "ln_bwd": 25, "gelu_fwd": 24,
-                     "gelu_bwd": 12}
+                     "gelu_bwd": 12, "flash_fwd": 24, "flash_dkv": 12,
+                     "flash_dq": 12}
+EXPECTED_DENSE = dict(EXPECTED_PER_STEP, flash_fwd=0, flash_dkv=0, flash_dq=0)
+# Flash check shapes (b, t, h, d, causal): the GPT-2-small one first.
+FLASH_CASES = [(BATCH, SEQ, N_HEAD, 64, True), (1, 77, 2, 64, True),
+               (1, 1000, 2, 64, True), (1, 1000, 2, 128, True),
+               (1, 77, 2, 128, False), (1, 1000, 2, 64, False)]
+CROSSOVER_SEQS = (512, 1024, 2048)
 
 
 class PhaseError(RuntimeError):
@@ -242,6 +274,150 @@ def time_kernels(torch, fn, inp, spec, flush):
     return out
 
 
+def flash_inputs(torch, b, t, h, d, seed):
+    """q, k, v as strided views of one [B, T, 3*H*D] bf16 tensor (the
+    model's layout) and a contiguous dO, from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, t, 3 * h * d, device="cuda",
+                      generator=g).to(torch.bfloat16)
+    q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    do = torch.randn(b, t, h, d, device="cuda", generator=g).to(torch.bfloat16)
+    return q, k, v, do
+
+
+def check_flash(torch, fa, case, failures, seed):
+    """Each flash kernel against its plain version at one shape; returns
+    (max abs error by kernel, inputs) for timing."""
+    b, t, h, d, causal = case
+    q, k, v, do = flash_inputs(torch, b, t, h, d, seed)
+    kw = dict(softmax_scale=d ** -0.5, causal=causal)
+    tag = f"[B={b} T={t} H={h} D={d} {'causal' if causal else 'full'}]"
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    out_r, lse_r = fa.ref_flash_fwd(q, k, v, **kw)
+    delta = fa.flash_delta(out_r, do)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_r, delta, **kw)
+    dq = fa.flash_dq(q, k, v, do, lse_r, delta, **kw)
+    dq_r, dk_r, dv_r = fa.ref_flash_bwd(q, k, v, out_r, lse_r, do, **kw)
+    torch.cuda.synchronize()
+    lse_err = float((lse - lse_r).abs().max())
+    lse_tol = 1e-4 * max(1.0, float(lse_r.abs().max()))
+    if not lse_err <= lse_tol:
+        failures.append(f"flash_fwd lse {tag}: max abs err {lse_err:.3e} > "
+                        f"{lse_tol:.3e}")
+    errs = {}
+    for kname, pairs in (("flash_fwd", (("out", out, out_r),)),
+                         ("flash_dkv", (("dk", dk, dk_r), ("dv", dv, dv_r))),
+                         ("flash_dq", (("dq", dq, dq_r),))):
+        errs[kname] = lse_err if kname == "flash_fwd" else 0.0
+        for oname, got, want in pairs:
+            err = float((got.float() - want.float()).abs().max())
+            cos = cosine(torch, got, want)
+            errs[kname] = max(errs[kname], err)
+            if not cos > 0.9999:
+                failures.append(f"{kname} {oname} {tag}: cosine {cos:.6f}, "
+                                f"max abs err {err:.3e}")
+    print(f"flash check {tag}: lse err {lse_err:.2e}, max abs err "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    return errs, dict(q=q, k=k, v=v, do=do, lse=lse_r, delta=delta,
+                      out=out_r, kw=kw)
+
+
+def time_flash(torch, fa, inp, spec, flush):
+    """{kernel: {ms, plain_ms, library_ms, bound_ms, bound_by, ...}} at the
+    inputs' shape. The yardstick is ``scaled_dot_product_attention``:
+    its forward for flash_fwd, its backward (dq, dk, dv and its own delta)
+    for both flash_dkv and flash_dq."""
+    F = torch.nn.functional
+    q, k, v, do, lse, delta, kw = (inp[x] for x in ("q", "k", "v", "do",
+                                                    "lse", "delta", "kw"))
+    b, t, h, d = q.shape
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    leaves = [x.detach().requires_grad_(True) for x in (qh, kh, vh)]
+    o_l = F.scaled_dot_product_attention(*leaves, is_causal=kw["causal"])
+    do_h = do.transpose(1, 2)
+    sdpa_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        o_l, leaves, do_h, retain_graph=True), flush)
+    # The (q, k) pairs the causal mask keeps, or all of them.
+    pairs = t * (t + 1) // 2 if kw["causal"] else t * t
+    bh, act, stat = b * h, b * t * h * d * 2, b * h * t * 4
+    cases = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                      lambda: fa.ref_flash_fwd(q, k, v, **kw),
+                      lambda: F.scaled_dot_product_attention(
+                          qh, kh, vh, is_causal=kw["causal"]),
+                      4 * act + stat, 4 * bh * pairs * d),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, **kw),
+                      lambda: fa.ref_flash_dkv(q, k, v, do, lse, delta, **kw),
+                      None, 6 * act + 2 * stat, 8 * bh * pairs * d),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, **kw),
+                     lambda: fa.ref_flash_dq(q, k, v, do, lse, delta, **kw),
+                     None, 5 * act + 2 * stat, 6 * bh * pairs * d),
+    }
+    out = {}
+    for name, (kern, plain, lib, nbytes, ops) in cases.items():
+        t_bytes = nbytes / spec["hbm_bytes_s"] * 1e3
+        t_ops = ops / spec["bf16_flops"] * 1e3
+        out[name] = {
+            "ms": device_ms(torch, kern, flush),
+            "plain_ms": device_ms(torch, plain, flush),
+            "library_ms": device_ms(torch, lib, flush) if lib else sdpa_bwd,
+            "library": ("scaled_dot_product_attention forward" if lib else
+                        "scaled_dot_product_attention backward (dq, dk, dv)"),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes,
+            "operations": ops,
+        }
+    return out
+
+
+def time_crossover(torch, fa, dense, flush):
+    """Forward plus backward device ms of dense and flash causal attention
+    at each of CROSSOVER_SEQS (B=8, H=12, D=64, bf16). Timing only."""
+    rows = []
+    for t in CROSSOVER_SEQS:
+        q, k, v, do = flash_inputs(torch, BATCH, t, N_HEAD, 64, t)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        row = {"seq": t}
+        for name, fn in (("dense_ms", dense), ("flash_ms",
+                                                fa.flash_causal_attention)):
+            row[name] = device_ms(torch, lambda: torch.autograd.grad(
+                fn(*leaves), leaves, do), flush, n=10)
+        rows.append(row)
+        print(f"attention fwd+bwd at T={t} (B*H=96, D=64, bf16): dense "
+              f"{row['dense_ms']:.3f} ms, flash {row['flash_ms']:.3f} ms")
+    return rows
+
+
+def run_step(torch, counters, cfg, warmup, steps, expected, measure_gpt2):
+    """One measured train-step run with every kernel counter set to 0 just
+    before it; returns the step dict with launches and launches per step,
+    after checking the loss and the per-step launch counts."""
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.clear()
+    step = measure_gpt2(cfg, BATCH, steps=steps, warmup=warmup, device="cuda")
+    launches = {k: sum(c[k] for c in counters) for k in PORTED}
+    step["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    step["launches"] = launches
+    n_steps = step["warmup"] + steps
+    step["launches_per_step"] = {k: launches[k] / n_steps for k in PORTED}
+    losses = step["losses"]
+    print(f"train step ({'flash' if cfg.use_flash else 'dense'} attention): "
+          f"GPT-2 {cfg.n_params / 1e6:.0f}M batch {BATCH} seq {cfg.seq_len}: "
+          f"{step['tok_s']:.1f} tok/s, {step['ms_step']:.2f} ms/step, MFU "
+          f"{step['mfu']:.2f}%, max_memory_allocated "
+          f"{step['max_memory_allocated'] / 2**30:.2f} GiB, losses "
+          f"{[round(x, 4) for x in losses]}, launches/step "
+          f"{step['launches_per_step']}")
+    require(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for k, want in expected.items():
+        got = step["launches_per_step"][k]
+        require(got == want, f"{k}: {got} launches per step, expected {want}")
+    return step
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -269,9 +445,11 @@ def main() -> int:
     from ray_tpu_torch._tree import tree_leaves
     from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init, gpt2_loss
     from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import fused_norm as fn
-    from ray_tpu_torch.scripts.measure import (FUSED_DENSE_FLAGS, device_spec,
-                                               measure_gpt2)
+    from ray_tpu_torch.ops.attention import dense_causal_attention
+    from ray_tpu_torch.scripts.measure import (FUSED_DENSE_FLAGS, FUSED_FLAGS,
+                                               device_spec, measure_gpt2)
     from ray_tpu_torch.train.train_step import value_and_grad
 
     OUT.mkdir(exist_ok=True)
@@ -279,11 +457,12 @@ def main() -> int:
 
     # Phase 2: build.
     t0 = time.perf_counter()
-    report["build_s"] = _build.build(["fused_norm"])
+    report["build_s"] = _build.build(list(SOURCES))
     print(f"build: {report['build_s']} s of nvcc, phase "
           f"{time.perf_counter() - t0:.1f} s")
-    shutil.copy(_build.library_path("fused_norm").with_suffix(".log"),
-                OUT / "nvcc_fused_norm.log")
+    for lib in SOURCES:
+        shutil.copy(_build.library_path(lib).with_suffix(".log"),
+                    OUT / f"nvcc_{lib}.log")
 
     # Phase 3: each kernel against its plain version.
     spec = device_spec(name)
@@ -295,90 +474,108 @@ def main() -> int:
         errs, inp = check_kernels(torch, fn, ROWS, D_MODEL, dtype, failures, 0)
         times = time_kernels(torch, fn, inp, spec, flush)
         key = str(dtype).split(".")[-1]
-        results[key] = {k: {"max_abs_err": errs[k], **times[k]} for k in PORTED}
+        results[key] = {k: {"max_abs_err": errs[k], **times[k]}
+                        for k in NORM_KERNELS}
         del inp
     for rows, d in ((37, 100), (64, 8192), (37, 2050)):
         for dtype in (torch.bfloat16, torch.float32):
             check_kernels(torch, fn, rows, d, dtype, failures, rows + d)
+    errs, inp = check_flash(torch, fa, FLASH_CASES[0], failures, 0)
+    times = time_flash(torch, fa, inp, spec, flush)
+    results["bfloat16"].update({k: {"max_abs_err": errs[k], **times[k]}
+                                for k in FLASH_KERNELS})
+    del inp
+    report["flash_odd_shapes"] = [
+        {"case": list(case), "max_abs_err": check_flash(
+            torch, fa, case, failures, i + 1)[0]}
+        for i, case in enumerate(FLASH_CASES[1:])]
+    report["attention_crossover"] = time_crossover(
+        torch, fa, dense_causal_attention, flush)
     report["kernels"] = results
     for k in PORTED:
         r = results["bfloat16"][k]
+        shape = (f"B={BATCH} T={SEQ} H={N_HEAD} D=64" if k in FLASH_KERNELS
+                 else f"R={ROWS}")
         print(f"{k}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms']:.4f} bound_us={r['bound_ms'] * 1e3:.1f} "
               f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e} "
-              f"launches_per_step={EXPECTED_PER_STEP[k]} [bf16, R={ROWS}]")
+              f"launches_per_step={EXPECTED_PER_STEP[k]} [bf16, {shape}]")
     require(not failures, "kernel vs plain: " + "; ".join(failures))
 
-    # Phase 4: the GPT-2-small train step through the kernels.
-    cfg = GPT2Config(**FUSED_DENSE_FLAGS)
-    torch.cuda.reset_peak_memory_stats()
-    fn.KERNEL_INVOCATIONS.clear()
-    step = measure_gpt2(cfg, BATCH, steps=STEPS, warmup=WARMUP, device="cuda")
-    launches = {k: fn.KERNEL_INVOCATIONS[k] for k in PORTED}
-    step["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    step["launches"] = launches
+    # Phase 4: the GPT-2-small train step, the main path (flash) first.
+    counters = (fn.KERNEL_INVOCATIONS, fa.KERNEL_INVOCATIONS)
+    cfg = GPT2Config(**FUSED_FLAGS)
+    step = run_step(torch, counters, cfg, WARMUP, STEPS, EXPECTED_PER_STEP,
+                    measure_gpt2)
     report["train_step"] = step
-    n_steps = WARMUP + STEPS
-    per_step = {k: launches[k] / n_steps for k in PORTED}
-    print(f"train step: GPT-2 {cfg.n_params / 1e6:.0f}M batch {BATCH} seq "
-          f"{cfg.seq_len}: {step['tok_s']:.1f} tok/s, {step['ms_step']:.2f} "
-          f"ms/step, MFU {step['mfu']:.2f}% of {device_spec(name)['bf16_flops'] / 1e12:.0f} "
-          f"TFLOP/s, max_memory_allocated "
-          f"{step['max_memory_allocated'] / 2**30:.2f} GiB, losses "
-          f"{[round(x, 4) for x in step['losses']]}, launches/step {per_step}")
-    losses = step["losses"]
-    require(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
-    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    for k, want in EXPECTED_PER_STEP.items():
-        require(per_step[k] == want,
-                f"{k}: {per_step[k]} launches per step, expected {want}")
+    report["train_step_dense"] = run_step(
+        torch, counters, GPT2Config(**FUSED_DENSE_FLAGS), DENSE_WARMUP,
+        DENSE_STEPS, EXPECTED_DENSE, measure_gpt2)
 
-    # Phase 5: kernel path vs plain path, same weights and batch.
+    # Phase 5: kernel paths vs the plain path, same weights and batch.
     params = gpt2_init(torch.Generator(device="cuda").manual_seed(0), cfg,
                        device="cuda")
     tokens = torch.randint(0, cfg.vocab_size, (4, cfg.seq_len + 1),
                            device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(2))
+    paths = {"flash+fused": cfg,
+             "dense+fused": GPT2Config(**FUSED_DENSE_FLAGS),
+             "plain": dataclasses.replace(GPT2Config(**FUSED_DENSE_FLAGS),
+                                          fused_norm=False)}
     out = {}
-    for fused in (True, False):
-        c = dataclasses.replace(cfg, fused_norm=fused)
+    for pname, c in paths.items():
         loss, grads = value_and_grad(lambda p, b: gpt2_loss(p, b, c), params,
                                      {"tokens": tokens})
-        out[fused] = (float(loss), grads)
-    gk, gp = tree_leaves(out[True][1]), tree_leaves(out[False][1])
-    require(all(a.shape == p.shape for a, p in zip(gk, tree_leaves(params))),
-            "gradient shapes differ from the parameters'")
-    require(all(bool(torch.isfinite(a).all()) for a in gk + gp),
-            "non-finite gradients")
-    cos = cosine(torch, torch.cat([a.flatten() for a in gk]),
-                 torch.cat([a.flatten() for a in gp]))
-    rel = abs(out[True][0] - out[False][0]) / abs(out[False][0])
-    report["kernel_vs_plain_path"] = {"loss_kernel": out[True][0],
-                                      "loss_plain": out[False][0],
-                                      "loss_rel_diff": rel, "grad_cosine": cos}
-    print(f"kernel vs plain path: loss {out[True][0]:.6f} vs {out[False][0]:.6f} "
-          f"(rel {rel:.2e}), gradient cosine {cos:.6f}")
-    require(rel <= 1e-2, f"losses differ by {rel:.3e} (rtol 1e-2)")
-    require(cos > 0.999, f"gradient cosine {cos} <= 0.999")
+        leaves = tree_leaves(grads)
+        require(all(a.shape == p.shape for a, p in zip(leaves,
+                                                       tree_leaves(params))),
+                f"{pname}: gradient shapes differ from the parameters'")
+        require(all(bool(torch.isfinite(a).all()) for a in leaves),
+                f"{pname}: non-finite gradients")
+        out[pname] = (float(loss), torch.cat([a.flatten() for a in leaves]))
+    loss_p, flat_p = out["plain"]
+    report["kernel_vs_plain_path"] = {}
+    for pname in ("flash+fused", "dense+fused"):
+        loss_k, flat_k = out[pname]
+        cos = cosine(torch, flat_k, flat_p)
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        report["kernel_vs_plain_path"][pname] = {
+            "loss_kernel": loss_k, "loss_plain": loss_p,
+            "loss_rel_diff": rel, "grad_cosine": cos}
+        print(f"{pname} vs plain path: loss {loss_k:.6f} vs {loss_p:.6f} "
+              f"(rel {rel:.2e}), gradient cosine {cos:.6f}")
+        require(rel <= 1e-2, f"{pname}: losses differ by {rel:.3e} (rtol 1e-2)")
+        require(cos > 0.999, f"{pname}: gradient cosine {cos} <= 0.999")
 
     # Phase 6: the kernels line.
     kernels, not_ported = [], []
+    launches = step["launches"]
     for kname, where, body in TPU_KERNELS:
         if kname not in PORTED:
             not_ported.append({"name": kname, "replaces": where, "body": body,
                                "status": "not_ported"})
             continue
-        bf, f32 = results["bfloat16"][kname], results["float32"][kname]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": SOURCE, "replaces": where,
-            "launches": launches[kname], "max_abs_err": bf["max_abs_err"],
-            "ms": bf["ms"], "plain_ms": bf["plain_ms"],
-            "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
-            "library_ms": bf["library_ms"], "status": "ported+checked",
-            "launches_per_step": per_step[kname], "dtype": "bfloat16",
-            "fp32": {k: f32[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "library_ms", "bound_ms")},
-        })
+        bf = results["bfloat16"][kname]
+        entry = {
+            "name": kname, "route": "cuda",
+            "source": SOURCES["flash_attention" if kname in FLASH_KERNELS
+                              else "fused_norm"],
+            "replaces": where, "launches": launches[kname],
+            "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
+            "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
+            "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
+            "status": "ported+checked",
+            "launches_per_step": step["launches_per_step"][kname],
+            "dtype": "bfloat16",
+        }
+        if kname in NORM_KERNELS:
+            f32 = results["float32"][kname]
+            entry["fp32"] = {k: f32[k] for k in ("max_abs_err", "ms",
+                                                 "plain_ms", "library_ms",
+                                                 "bound_ms")}
+        else:
+            entry["library"] = bf["library"]
+        kernels.append(entry)
     report["kernels_line"] = {"kernels": kernels, "not_ported": not_ported}
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps(report["kernels_line"]))

@@ -1,6 +1,8 @@
-"""Compute ops: attention and the fused LayerNorm/GELU kernels."""
+"""Compute ops: attention (dense and flash) and the fused LayerNorm/GELU
+kernels."""
 
 from ray_tpu_torch.ops.attention import causal_attention, dense_causal_attention
+from ray_tpu_torch.ops.flash_attention import flash_causal_attention
 from ray_tpu_torch.ops.fused_norm import (
     fused_gelu,
     fused_layer_norm,
@@ -10,6 +12,7 @@ from ray_tpu_torch.ops.fused_norm import (
 __all__ = [
     "causal_attention",
     "dense_causal_attention",
+    "flash_causal_attention",
     "fused_gelu",
     "fused_layer_norm",
     "fused_layer_norm_residual",

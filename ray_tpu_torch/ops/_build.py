@@ -11,6 +11,11 @@ memory and spills of every kernel) is kept beside the library as
 
 Nothing is built when this module is imported: ``load_library`` builds at
 first use, and ``build`` lets a caller start several builds at once.
+
+The calling convention the kernel wrappers share lives here too: a CPU
+tensor takes the plain version (``on_cpu``), a launcher gets PyTorch's
+current stream (``stream``), and ``launch`` raises on a non-zero
+``cudaError_t`` and counts only launches that were accepted.
 """
 
 from __future__ import annotations
@@ -97,3 +102,30 @@ def load_library(name: str) -> ctypes.CDLL:
             build([name])
             lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def on_cpu(x) -> bool:
+    """True for a CPU tensor, False for a CUDA one; raises for any other
+    device rather than guess which path it should take."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return False
+
+
+def stream(device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as the int a launcher
+    takes for its ``cudaStream_t``."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(counter, name: str, fn, *args) -> None:
+    """Call the C launcher ``fn``; raise if it returns a CUDA error, else
+    add one to ``counter[name]``."""
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    counter[name] += 1

@@ -1,18 +1,33 @@
 """Causal attention, training half (port of ``ray_tpu/ops/attention.py:29-73``).
 
-``dense_causal_attention`` is the counterpart of ``xla_causal_attention``:
-plain PyTorch, fp32 scores and softmax, probabilities cast to ``q.dtype``.
-The flash kernels are ported in a later slice; until then a call that asks
-for flash, by name or by the ``None`` default resolving to it, raises.
+``causal_attention`` dispatches between:
+
+* ``dense_causal_attention``, the counterpart of ``xla_causal_attention``:
+  plain PyTorch, fp32 scores and softmax, probabilities cast to
+  ``q.dtype`` -- always right, and the CPU default;
+* ``flash_causal_attention`` (``ops/flash_attention.py``), the hand-written
+  CUDA flash kernels on a GPU; on the CPU the same autograd Function over
+  the kernels' plain versions, as the JAX package runs flash in interpret
+  mode there.
+
+The choice is made before anything is launched. Unlike the JAX package,
+nothing falls back to dense after a flash call fails: a request the kernels
+cannot take raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-# Sequence length at which ``use_flash=None`` picks flash on a GPU. Carried
-# over from the JAX package; it is to be set anew from GPU measurements when
-# the flash kernels are ported.
+from ray_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_causal_attention
+
+# Sequence length at which ``use_flash=None`` picks flash on a GPU. Kept at
+# the JAX package's value, so the model's default config runs the kernels at
+# seq 1024. Measured crossover (chip_smoke.py phase 3, forward plus backward,
+# B*H = 96, D = 64, bf16, NVIDIA H100 80GB HBM3 at 700 W): flash 0.22 ms vs
+# dense 1.06 ms at T = 512, 0.57 vs 3.71 at 1024, 1.60 vs 13.9 at 2048 --
+# flash is already faster at 512, so the threshold is to be set anew, lower,
+# from a sweep that also covers T < 512.
 _FLASH_MIN_SEQ = 1024
 
 
@@ -32,14 +47,20 @@ def dense_causal_attention(q, k, v, *, softmax_scale: float | None = None):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _flash_by_default(q) -> bool:
+    """``use_flash=None``: flash on a GPU at T >= _FLASH_MIN_SEQ for the
+    head dims and dtype the kernels take; dense otherwise (always on the
+    CPU, as in the JAX package)."""
+    return (q.is_cuda and q.shape[1] >= _FLASH_MIN_SEQ
+            and q.shape[-1] in HEAD_DIMS and q.dtype == torch.bfloat16)
+
+
 def causal_attention(q, k, v, *, softmax_scale: float | None = None,
                      use_flash: bool | None = None):
-    """[B, T, H, D] causal attention. ``use_flash=None`` resolves to flash
-    on a GPU at T >= 1024 and to dense otherwise (always dense on the CPU,
-    as in the JAX package)."""
+    """[B, T, H, D] causal attention. ``use_flash=True`` takes the flash
+    path on any device; ``None`` resolves by ``_flash_by_default``."""
     if use_flash is None:
-        use_flash = q.is_cuda and q.shape[1] >= _FLASH_MIN_SEQ
+        use_flash = _flash_by_default(q)
     if use_flash:
-        raise NotImplementedError(
-            "flash attention is ported in a later slice; pass use_flash=False")
+        return flash_causal_attention(q, k, v, softmax_scale=softmax_scale)
     return dense_causal_attention(q, k, v, softmax_scale=softmax_scale)

@@ -29,12 +29,13 @@ import math
 
 import torch
 
-from ray_tpu_torch.ops._build import load_library
+from ray_tpu_torch.ops._build import launch, load_library, on_cpu, stream
 
 LN_EPS = 1e-5  # matches models/gpt2.py _layer_norm
 
 # Launches per kernel name, bumped by a wrapper only where it launches.
 KERNEL_INVOCATIONS: collections.Counter = collections.Counter()
+_launch = functools.partial(launch, KERNEL_INVOCATIONS)
 
 _GELU_C = math.sqrt(2.0 / math.pi)
 _GELU_A = 0.044715
@@ -115,14 +116,6 @@ def ref_gelu_bwd(x, g):
 # -- kernel wrappers -------------------------------------------------------
 
 
-def _on_cpu(x) -> bool:
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    return False
-
-
 def _check(name, t, *, device, dtype, shape):
     if t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
@@ -148,21 +141,10 @@ def _check_width(name, d, lib):
                          f"{lib.rt_ln_max_d()}")
 
 
-def _launch(name, fn, *args):
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    KERNEL_INVOCATIONS[name] += 1
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def ln_fwd(x2d, scale, bias, eps: float = LN_EPS):
     """LayerNorm forward of rows ``x2d`` [R, D] -> (y, mu [R], rstd [R]).
     ``scale`` and ``bias`` are [D] fp32."""
-    if _on_cpu(x2d):
+    if on_cpu(x2d):
         return ref_ln_fwd(x2d, scale, bias, eps)
     code = _io_dtype("ln_fwd", x2d)
     r, d = x2d.shape
@@ -179,7 +161,7 @@ def ln_fwd(x2d, scale, bias, eps: float = LN_EPS):
     with torch.cuda.device(dev):
         _launch("ln_fwd", lib.rt_ln_fwd, x2d.data_ptr(), scale.data_ptr(),
                 bias.data_ptr(), y.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
-                r, d, eps, code, _stream(dev))
+                r, d, eps, code, stream(dev))
     return y, mu, rstd
 
 
@@ -188,7 +170,7 @@ def ln_bwd(x2d, mu, rstd, scale, dy, dres=None):
     (the residual cotangent, or None) is added into dx. The kernel writes
     per-row-block fp32 partials that one ``torch.sum`` collapses, as the
     JAX package sums its kernel's partials outside the kernel."""
-    if _on_cpu(x2d):
+    if on_cpu(x2d):
         return ref_ln_bwd(x2d, mu, rstd, scale, dy, dres)
     code = _io_dtype("ln_bwd", x2d)
     r, d = x2d.shape
@@ -212,27 +194,27 @@ def ln_bwd(x2d, mu, rstd, scale, dy, dres=None):
                 rstd.data_ptr(), scale.data_ptr(), dy.data_ptr(),
                 None if dres is None else dres.data_ptr(), dx.data_ptr(),
                 parts[0].data_ptr(), parts[1].data_ptr(), r, d, code,
-                _stream(dev))
+                stream(dev))
     dscale, dbias = parts.sum(1)
     return dx, dscale, dbias
 
 
 def gelu_fwd(x):
     """tanh-GELU of a contiguous tensor, elementwise, in ``x.dtype``."""
-    if _on_cpu(x):
+    if on_cpu(x):
         return ref_gelu(x)
     code = _io_dtype("gelu_fwd", x)
     _check("gelu_fwd x", x, device=x.device, dtype=x.dtype, shape=x.shape)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         _launch("gelu_fwd", _lib().rt_gelu_fwd, x.data_ptr(), y.data_ptr(),
-                x.numel(), code, _stream(x.device))
+                x.numel(), code, stream(x.device))
     return y
 
 
 def gelu_bwd(x, g):
     """dx = g * GELU'(x), with tanh recomputed from the pre-activation x."""
-    if _on_cpu(x):
+    if on_cpu(x):
         return ref_gelu_bwd(x, g)
     code = _io_dtype("gelu_bwd", x)
     _check("gelu_bwd x", x, device=x.device, dtype=x.dtype, shape=x.shape)
@@ -240,7 +222,7 @@ def gelu_bwd(x, g):
     dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
         _launch("gelu_bwd", _lib().rt_gelu_bwd, x.data_ptr(), g.data_ptr(),
-                dx.data_ptr(), x.numel(), code, _stream(x.device))
+                dx.data_ptr(), x.numel(), code, stream(x.device))
     return dx
 
 

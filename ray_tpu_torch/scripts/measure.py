@@ -25,11 +25,14 @@ DEVICE_SPECS = {
 }
 
 
-# bench.py's "fused" GPT-2 config (ray_tpu/bench.py:81) with dense attention:
-# the configuration this slice of the port drives.
-FUSED_DENSE_FLAGS = dict(remat="dots", scan_layers=False, use_flash=False,
-                         logits_dtype=torch.bfloat16, ce_vocab_chunks=3,
-                         fused_norm=True)
+# bench.py's "fused" GPT-2 config (bench.py:67 and :81): flash attention,
+# fused norms, dots remat, bf16 logits, chunked CE -- the configuration the
+# JAX package benchmarks and the port's main path.
+FUSED_FLAGS = dict(remat="dots", scan_layers=False, use_flash=True,
+                   logits_dtype=torch.bfloat16, ce_vocab_chunks=3,
+                   fused_norm=True)
+# The same with dense attention (the first slice's path), kept beside it.
+FUSED_DENSE_FLAGS = dict(FUSED_FLAGS, use_flash=False)
 
 
 def device_spec(device_name: str) -> dict[str, float]:

@@ -4,14 +4,17 @@ Profiles ``--steps`` train steps of a GPT-2 config on one GPU with
 ``torch.profiler`` (after warmup steps and as many unprofiled, timed steps)
 and prints one JSON object: the step's wall time with and without the
 profiler, the summed device-kernel time and busy share, the time
-per kernel class (the port's fused-norm kernels, matrix products, softmax,
-reductions, other elementwise, the rest) and the top kernels by device time.
+per kernel class (the port's flash and fused-norm kernels, matrix products,
+softmax, reductions, other elementwise, the rest), the top kernels by
+device time, and the top PyTorch operators by the device time of the
+kernels they launched themselves.
 
-    python -m ray_tpu_torch.scripts.profile_step [--batch 8] [--steps 2]
-        [--out profile_step.json]
+    python -m ray_tpu_torch.scripts.profile_step [--config flash|dense]
+        [--batch 8] [--steps 2] [--out profile_step.json]
 
-The config is GPT-2 small with ``measure.FUSED_DENSE_FLAGS``, the one
-``chip_smoke.py`` drives. Needs a CUDA device.
+The config is GPT-2 small with ``measure.FUSED_FLAGS`` (``flash``, the
+default: the main path ``chip_smoke.py`` drives) or
+``measure.FUSED_DENSE_FLAGS`` (``dense``). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 # Kernel classes by substring of the kernel name, first match wins.
 CLASSES = (
+    ("flash", ("flash_fwd_kernel", "flash_dkv_kernel", "flash_dq_kernel")),
     ("fused_norm", ("ln_fwd_kernel", "ln_bwd_kernel", "gelu_fwd_kernel",
                     "gelu_bwd_kernel")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
@@ -43,13 +47,15 @@ def classify(name: str) -> str:
     return "other"
 
 
-def profile_step(batch: int = 8, steps: int = 2, warmup: int = 2) -> dict:
+def profile_step(batch: int = 8, steps: int = 2, warmup: int = 2,
+                 config: str = "flash") -> dict:
     from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init, gpt2_loss
-    from ray_tpu_torch.scripts.measure import FUSED_DENSE_FLAGS
+    from ray_tpu_torch.scripts.measure import FUSED_DENSE_FLAGS, FUSED_FLAGS
     from ray_tpu_torch.train.train_step import make_init_fn, make_train_step
 
     device = torch.device("cuda")
-    cfg = GPT2Config(**FUSED_DENSE_FLAGS)
+    flags = {"flash": FUSED_FLAGS, "dense": FUSED_DENSE_FLAGS}[config]
+    cfg = GPT2Config(**flags)
     state = make_init_fn(lambda g: gpt2_init(g, cfg, device=device))(
         torch.Generator(device=device).manual_seed(0))
     step_fn = make_train_step(lambda p, b: gpt2_loss(p, b, cfg))
@@ -82,8 +88,16 @@ def profile_step(batch: int = 8, steps: int = 2, warmup: int = 2) -> dict:
         by_class[classify(e.name)] += us
         by_name[e.name] += us
     busy_us = sum(by_class.values())
+    # Host-side operators only (kernel rows carry device time too). A
+    # kernel launched through ctypes counts to the operator around it: the
+    # flash backward kernels to ``_FlashAttentionBackward``.
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:15]
     return {
         "device": torch.cuda.get_device_name(device),
+        "config": config,
         "batch": batch,
         "steps": steps,
         "ms_per_step": plain_wall * 1e3 / steps,
@@ -97,18 +111,22 @@ def profile_step(batch: int = 8, steps: int = 2, warmup: int = 2) -> dict:
                                  for k, v in by_class.most_common()},
         "top_kernels_ms_per_step": [(name[:120], us / 1e3 / steps)
                                     for name, us in by_name.most_common(15)],
+        # (operator, device ms per step, calls per step)
+        "top_ops_ms_per_step": [(e.key, e.self_device_time_total / 1e3 / steps,
+                                 e.count / steps) for e in ops],
     }
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("flash", "dense"), default="flash")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
-    result = profile_step(args.batch, args.steps)
+    result = profile_step(args.batch, args.steps, config=args.config)
     text = json.dumps(result, indent=1)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -2,9 +2,9 @@
 
 One parameter tree from the JAX ``gpt2_init``, passed through numpy, and
 one numpy token batch go through both packages' ``gpt2_loss`` and its
-gradient. With ``fused_norm=True`` the JAX side runs its Pallas kernels in
-interpret mode (asserted) and the port its autograd Functions over the
-kernels' plain versions.
+gradient. With ``fused_norm=True`` or ``use_flash=True`` the JAX side runs
+its Pallas kernels in interpret mode (asserted for the norm kernels) and the
+port its autograd Functions over the kernels' plain versions.
 
 Tolerances: fp32 loss rtol 1e-5 and per-leaf gradients rtol 1e-4,
 atol 1e-6 -- the same fp32 arithmetic, summed in another order. The bf16
@@ -26,6 +26,7 @@ from ray_tpu.ops import fused_norm as jfn
 from ray_tpu_torch._tree import tree_leaves
 from ray_tpu_torch.models import gpt2 as tgpt2
 from ray_tpu_torch.models.convert import params_from_numpy, params_to_numpy
+from ray_tpu_torch.ops import flash_attention as tfa
 from ray_tpu_torch.ops import fused_norm as tfn
 from ray_tpu_torch.train.train_step import value_and_grad
 
@@ -77,12 +78,15 @@ def _cosine(a, b):
     return float(fa @ fb / (np.linalg.norm(fa) * np.linalg.norm(fb)))
 
 
+@pytest.mark.parametrize("use_flash", [False, True])
 @pytest.mark.parametrize("ce_vocab_chunks", [1, 4])
 @pytest.mark.parametrize("remat", [False, "dots"])
 @pytest.mark.parametrize("fused_norm", [False, True])
-def test_loss_and_grads_match_jax_fp32(fused_norm, remat, ce_vocab_chunks):
+def test_loss_and_grads_match_jax_fp32(fused_norm, remat, ce_vocab_chunks,
+                                       use_flash):
     jcfg, tcfg = _configs("fp32", fused_norm=fused_norm, remat=remat,
-                          ce_vocab_chunks=ce_vocab_chunks)
+                          ce_vocab_chunks=ce_vocab_chunks,
+                          use_flash=use_flash)
     params, tokens = _inputs(jcfg)
     jloss, jgrads = _jax_value_and_grad(jcfg, params, tokens)
     tloss, tgrads = _port_value_and_grad(tcfg, params, tokens)
@@ -96,11 +100,13 @@ def test_loss_and_grads_match_jax_fp32(fused_norm, remat, ce_vocab_chunks):
                                    err_msg=jax.tree_util.keystr(path))
 
 
-def test_loss_and_grads_track_jax_bf16():
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_loss_and_grads_track_jax_bf16(use_flash):
     """The bench's fused config at bf16: kernels, dots remat, bf16 logits,
-    chunked CE."""
+    chunked CE, with dense or flash attention."""
     jcfg, tcfg = _configs("bf16", fused_norm=True, remat="dots",
-                          ce_vocab_chunks=4, logits_bf16=True)
+                          ce_vocab_chunks=4, logits_bf16=True,
+                          use_flash=use_flash)
     params, tokens = _inputs(jcfg, seed=1)
     jloss, jgrads = _jax_value_and_grad(jcfg, params, tokens)
     tloss, tgrads = _port_value_and_grad(tcfg, params, tokens)
@@ -147,23 +153,31 @@ def test_param_tree_and_counts_match_jax():
 
 
 def test_remat_dots_recomputes_the_kernels(monkeypatch):
-    """Under remat="dots" the backward reruns each block's forward norm and
-    GELU ops, as the JAX checkpoint policy does: the forward wrappers run
-    twice per block, the backward ones once, the final norm once each.
-    Counted at the wrappers (the kernel counters only move on a GPU)."""
-    jcfg, tcfg = _configs("fp32", fused_norm=True, remat="dots")
+    """Under remat="dots" the backward reruns each block's forward norm,
+    GELU and flash ops, as the JAX checkpoint policy does (it saves no
+    ``pallas_call``): the forward wrappers run twice per block, the backward
+    ones once, the final norm once each. Counted at the wrappers (the kernel
+    counters only move on a GPU)."""
+    jcfg, tcfg = _configs("fp32", fused_norm=True, remat="dots",
+                          use_flash=True)
     params, tokens = _inputs(jcfg)
-    calls = dict.fromkeys(("ln_fwd", "ln_bwd", "gelu_fwd", "gelu_bwd"), 0)
-    for name in calls:
-        def counting(*a, _name=name, _orig=getattr(tfn, name)):
-            calls[_name] += 1
-            return _orig(*a)
+    calls = {}
+    for module, names in ((tfn, ("ln_fwd", "ln_bwd", "gelu_fwd", "gelu_bwd")),
+                          (tfa, ("flash_fwd", "flash_dkv", "flash_dq"))):
+        for name in names:
+            calls[name] = 0
 
-        monkeypatch.setattr(tfn, name, counting)
+            def counting(*a, _name=name, _orig=getattr(module, name), **kw):
+                calls[_name] += 1
+                return _orig(*a, **kw)
+
+            monkeypatch.setattr(module, name, counting)
     _port_value_and_grad(tcfg, params, tokens)
     layers = tcfg.n_layer
     assert calls == {"ln_fwd": 2 * (2 * layers) + 1, "ln_bwd": 2 * layers + 1,
-                     "gelu_fwd": 2 * layers, "gelu_bwd": layers}
+                     "gelu_fwd": 2 * layers, "gelu_bwd": layers,
+                     "flash_fwd": 2 * layers, "flash_dkv": layers,
+                     "flash_dq": layers}
 
 
 def test_unported_paths_raise():

@@ -1,6 +1,6 @@
 """ray_tpu_torch as a package: import hygiene, device resolution, the
-unported paths, and -- on a GPU only -- each CUDA kernel against its plain
-version at small shapes.
+attention dispatch, and -- on a GPU only -- each CUDA kernel against its
+plain version at small shapes.
 
 The ``gpu`` tests skip without a CUDA device. On a GPU machine without JAX
 run them with ``python -m pytest --noconftest -p no:cacheprovider
@@ -13,12 +13,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import fused_norm as fn
-from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.ops.attention import causal_attention, dense_causal_attention
 
 REPO = Path(__file__).resolve().parents[1]
 SLICE_MODULES = [
@@ -28,6 +30,7 @@ SLICE_MODULES = [
     "ray_tpu_torch.ops",
     "ray_tpu_torch.ops._build",
     "ray_tpu_torch.ops.attention",
+    "ray_tpu_torch.ops.flash_attention",
     "ray_tpu_torch.ops.fused_norm",
     "ray_tpu_torch.models",
     "ray_tpu_torch.models.gpt2",
@@ -87,12 +90,25 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_flash_requests_raise():
-    q = torch.zeros(1, 8, 2, 4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        causal_attention(q, q, q, use_flash=True)
-    # On the CPU, None resolves to dense, as in the JAX package.
-    assert causal_attention(q, q, q).shape == q.shape
+def test_flash_requests_take_flash_on_cpu(monkeypatch):
+    """``use_flash=True`` on the CPU runs the flash Function over the plain
+    versions and matches dense attention; ``None`` resolves to dense on the
+    CPU, as in the JAX package, even at T >= _FLASH_MIN_SEQ."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 24, 2, 8),
+                                                    dtype=np.float32))
+               for _ in range(3))
+    calls = []
+    orig = fa.flash_fwd
+    monkeypatch.setattr(fa, "flash_fwd",
+                        lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+    out = causal_attention(q, k, v, use_flash=True)
+    assert calls == [1]
+    torch.testing.assert_close(out, dense_causal_attention(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+    long_q = torch.zeros(1, 1024, 1, 64)
+    assert causal_attention(long_q, long_q, long_q).shape == long_q.shape
+    assert calls == [1]
 
 
 def test_wrappers_reject_other_devices():
@@ -198,3 +214,85 @@ def test_autograd_through_kernels_matches_plain(cuda):
         grads.append((xs.grad, ss.grad, bs.grad))
     for a, b_ in zip(*grads):
         _check(a, b_, 1e-4)
+
+
+# -- on a GPU: the flash kernels against their plain versions -----------------
+
+
+def _cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def _flash_inputs(cuda, b, t, h, d, seed):
+    """q, k, v as strided views of one [B, T, 3*H*D] bf16 tensor, as the
+    model slices its fused qkv product, and a contiguous dO."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn(b, t, 3 * h * d, device=cuda, generator=g)
+    q, k, v = (x.reshape(b, t, h, d) for x in
+               qkv.to(torch.bfloat16).split(h * d, dim=-1))
+    do = torch.randn(b, t, h, d, device=cuda, generator=g).to(torch.bfloat16)
+    return q, k, v, do
+
+
+def _close_bf16(got, want):
+    """Cosine > 0.9999 (bf16 P and dS are rounded at other running maxima
+    than the dense plain version's) and no element off by more than 2% of
+    the largest magnitude."""
+    assert _cosine(got, want) > 0.9999
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2e-2 * max(1.0, float(want.float().abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,d", [(77, 64), (1024, 64), (77, 128), (1024, 128)])
+def test_flash_kernels_match_plain(cuda, t, d, causal):
+    b, h = 2, 3
+    q, k, v, do = _flash_inputs(cuda, b, t, h, d, t + d)
+    assert not q.is_contiguous()
+    kw = dict(softmax_scale=d ** -0.5, causal=causal)
+    before = dict(fa.KERNEL_INVOCATIONS)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    out_r, lse_r = fa.ref_flash_fwd(q, k, v, **kw)
+    assert float((lse - lse_r).abs().max()) <= 1e-4 * max(
+        1.0, float(lse_r.abs().max()))
+    _close_bf16(out, out_r)
+    delta = fa.flash_delta(out_r, do)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_r, delta, **kw)
+    dq = fa.flash_dq(q, k, v, do, lse_r, delta, **kw)
+    dk_r, dv_r = fa.ref_flash_dkv(q, k, v, do, lse_r, delta, **kw)
+    dq_r = fa.ref_flash_dq(q, k, v, do, lse_r, delta, **kw)
+    for got, want in ((dq, dq_r), (dk, dk_r), (dv, dv_r)):
+        _close_bf16(got, want)
+    torch.cuda.synchronize()
+    for name in ("flash_fwd", "flash_dkv", "flash_dq"):
+        assert fa.KERNEL_INVOCATIONS[name] == before.get(name, 0) + 1
+
+
+@pytest.mark.gpu
+def test_flash_autograd_on_kernels_matches_plain(cuda):
+    q, k, v, do = _flash_inputs(cuda, 2, 200, 4, 64, 7)
+    grads = []
+    for kernels in (True, False):
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        args = xs if kernels else [x.cpu() for x in xs]
+        out = fa.flash_causal_attention(*args)
+        out.backward(do.to(out.device))
+        grads.append([out.detach().cuda()] + [x.grad for x in xs])
+    for got, want in zip(*grads):
+        _close_bf16(got, want)
+
+
+@pytest.mark.gpu
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(1, 64, 2, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(x, x, x, softmax_scale=1.0, causal=True)
+    y = torch.zeros(1, 64, 2, 64, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_fwd(y, y, y, softmax_scale=1.0, causal=True)
+    z = torch.zeros(1, 2, 64, 64, device=cuda,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError, match="packed"):
+        fa.flash_fwd(z, z, z, softmax_scale=1.0, causal=True)
