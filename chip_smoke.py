@@ -13,35 +13,46 @@ that fails:
    on the same inputs, and the device time of the kernel, the plain
    version and one PyTorch call for the same function (the yardstick,
    never called by the port):
-   - the fused-norm kernels at the GPT-2-small shapes (R = 8 x 1024 rows,
-     D = 768, GELU width 3072) in bf16 and fp32, plus odd widths that
-     exercise the masked tails;
+   - the LayerNorm and GELU kernels at the GPT-2-small shapes (R = 8 x 1024
+     rows, D = 768, GELU width 3072) in bf16 and fp32;
+   - the RMSNorm kernels at the Llama-small shape (R = 4 x 2048 rows,
+     D = 1024) in bf16 and fp32; yardstick ``F.rms_norm`` and its autograd
+     backward;
+   - all six norm kernels at odd widths that exercise the masked tails;
    - the flash kernels at the GPT-2-small shape (B=8, T=1024, H=12, D=64,
      bf16, causal, q/k/v strided views of one [B, T, 3*768] tensor, as the
-     model passes them) and at odd shapes (T = 77 and 1000, D = 128,
-     causal=False, B=1, H=2); yardstick ``scaled_dot_product_attention``
-     forward, and its backward for the dK/dV + dQ pair;
+     model passes them), at the Llama-small shape (B=4, T=2048, H=16,
+     D=64, contiguous q/k/v, as the GQA repeat leaves them) and at odd
+     shapes (T = 77 and 1000, D = 128, causal=False, B=1, H=2); yardstick
+     ``scaled_dot_product_attention`` forward, and its backward for the
+     dK/dV + dQ pair;
    - dense against flash attention, forward plus backward, at T = 512,
      1024 and 2048 (B*H = 96, D = 64), timed only;
-4. the GPT-2-small train step (124M, seq 1024, batch 8) through
-   ``measure_gpt2``, in ``bench.py``'s ``fused`` config with flash
-   attention (the main path: 2 warmup and 5 timed steps), then with dense
-   attention (1 warmup and 3 timed steps): the loss finite and falling,
-   and every kernel launched exactly the expected number of times per
-   step, counted from 0 just before each run;
-5. kernel path vs plain path, same weights and batch (batch 4): flash +
-   fused norms, and dense + fused norms, each against fully plain (dense
-   attention, ``fused_norm=False``);
-6. one JSON line of every TPU kernel of the JAX package, ported or not;
+4. the train steps, each with every kernel counter set to 0 just before
+   it and its launches read just after: the loss finite and falling, and
+   every kernel launched exactly the expected number of times per step:
+   - GPT-2 small (124M, seq 1024, batch 8) through ``measure_gpt2``, in
+     ``bench.py``'s ``fused`` config with flash attention (the GPT-2 main
+     path: 2 warmup and 5 timed steps), then with dense attention (1
+     warmup and 3 timed steps);
+   - Llama small (246M, 16 layers, d 1024, 16 query and 4 KV heads, seq
+     2048, batch 4) through ``measure_llama`` with ``LLAMA_FLAGS`` (flash
+     attention, RMSNorm kernels, dots remat; the Llama main path: 2 warmup
+     and 5 timed steps);
+5. kernel path vs plain path, same weights and batch: GPT-2 (batch 4)
+   flash + fused norms, and dense + fused norms, each against fully plain
+   (dense attention, ``fused_norm=False``); Llama (batch 2) flash + RMSNorm
+   kernels, and dense + RMSNorm kernels, each against fully plain;
+6. one JSON line of every TPU kernel of the JAX package, all ported;
 7. the last line, ``{"ok": true, "device": {...}}``.
 
-Tolerances: fused-norm fp32 outputs within 1e-5 (forward) and 1e-4
-(gradients) of the plain version, relative to the larger of 1 and the
-output's largest magnitude (the column sums dscale/dbias reach ~100 at
-R = 8192, where fp32 sums taken in another order differ by more than 1e-4
-absolute); bf16 outputs within one bf16 ulp plus 1e-5 absolute (values near
-zero carry the fp32 rounding from before the cast); bf16 dscale/dbias by
-cosine > 0.9999. Flash: lse within 1e-4 * max(1, |lse|) (fp32 sums taken
+Tolerances: fused-norm (LayerNorm, RMSNorm, GELU) fp32 outputs within
+1e-5 (forward) and 1e-4 (gradients) of the plain version, relative to the
+larger of 1 and the output's largest magnitude (the column sums
+dscale/dbias reach ~100 at R = 8192, where fp32 sums taken in another order
+differ by more than 1e-4 absolute); bf16 outputs within one bf16 ulp plus
+1e-5 absolute (values near zero carry the fp32 rounding from before the
+cast); bf16 dscale/dbias by cosine > 0.9999. Flash: lse within 1e-4 * max(1, |lse|) (fp32 sums taken
 tile by tile, in another order than the dense plain version); out, dq, dk
 and dv by cosine > 0.9999 with the max abs error printed (the kernels round
 P and dS to bf16 against the running max of each tile, the plain version
@@ -86,11 +97,15 @@ TPU_KERNELS = [
     ("flash_dq", "ray_tpu/ops/flash_attention.py:269", "_dq_kernel"),
 ]
 NORM_KERNELS = ("ln_fwd", "ln_bwd", "gelu_fwd", "gelu_bwd")
+RMS_KERNELS = ("rms_fwd", "rms_bwd")
 FLASH_KERNELS = ("flash_fwd", "flash_dkv", "flash_dq")
-PORTED = NORM_KERNELS + FLASH_KERNELS
+PORTED = NORM_KERNELS + RMS_KERNELS + FLASH_KERNELS
 
 BATCH, SEQ, D_MODEL, N_HEAD = 8, 1024, 768, 12
 ROWS = BATCH * SEQ
+# Llama small (LlamaConfig.small()) at batch 4: 8192 tokens a step.
+L_BATCH, L_SEQ, L_D_MODEL, L_N_HEAD = 4, 2048, 1024, 16
+L_ROWS = L_BATCH * L_SEQ
 WARMUP, STEPS = 2, 5
 DENSE_WARMUP, DENSE_STEPS = 1, 3
 # Launches per train step of the fused config with remat="dots": two norms
@@ -98,13 +113,19 @@ DENSE_WARMUP, DENSE_STEPS = 1, 3
 # run again when backward recomputes each block (the checkpoint policy
 # saves matrix products only, so the flash forward is recomputed too).
 EXPECTED_PER_STEP = {"ln_fwd": 2 * 25 - 1, "ln_bwd": 25, "gelu_fwd": 24,
-                     "gelu_bwd": 12, "flash_fwd": 24, "flash_dkv": 12,
-                     "flash_dq": 12}
+                     "gelu_bwd": 12, "rms_fwd": 0, "rms_bwd": 0,
+                     "flash_fwd": 24, "flash_dkv": 12, "flash_dq": 12}
 EXPECTED_DENSE = dict(EXPECTED_PER_STEP, flash_fwd=0, flash_dkv=0, flash_dq=0)
+# The Llama step, by the same rule over 16 blocks: rms_fwd 2*2*16 + 1,
+# rms_bwd 2*16 + 1, flash 2*16 / 16 / 16.
+EXPECTED_LLAMA = {"ln_fwd": 0, "ln_bwd": 0, "gelu_fwd": 0, "gelu_bwd": 0,
+                  "rms_fwd": 65, "rms_bwd": 33, "flash_fwd": 32,
+                  "flash_dkv": 16, "flash_dq": 16}
 # Flash check shapes (b, t, h, d, causal): the GPT-2-small one first.
 FLASH_CASES = [(BATCH, SEQ, N_HEAD, 64, True), (1, 77, 2, 64, True),
                (1, 1000, 2, 64, True), (1, 1000, 2, 128, True),
                (1, 77, 2, 128, False), (1, 1000, 2, 64, False)]
+FLASH_LLAMA_CASE = (L_BATCH, L_SEQ, L_N_HEAD, 64, True)
 CROSSOVER_SEQS = (512, 1024, 2048)
 
 
@@ -258,38 +279,108 @@ def time_kernels(torch, fn, inp, spec, flush):
                                                           approximate="tanh"),
                      3 * n * es, 20 * n),
     }
-    out = {}
-    for name, (kern, plain, lib, nbytes, ops) in cases.items():
-        t_bytes = nbytes / spec["hbm_bytes_s"] * 1e3
-        t_ops = ops / spec["fp32_flops"] * 1e3
-        out[name] = {
-            "ms": device_ms(torch, kern, flush),
-            "plain_ms": device_ms(torch, plain, flush),
-            "library_ms": device_ms(torch, lib, flush),
-            "bound_ms": max(t_bytes, t_ops),
+    return {name: {"ms": device_ms(torch, kern, flush),
+                   "plain_ms": device_ms(torch, plain, flush),
+                   "library_ms": device_ms(torch, lib, flush),
+                   **bound(nbytes, ops, spec, "fp32_flops")}
+            for name, (kern, plain, lib, nbytes, ops) in cases.items()}
+
+
+def check_rms(torch, fn, rows, d, dtype, failures, seed):
+    """rms_fwd and rms_bwd (with and without dres) against their plain
+    versions; returns (errors by kernel, inputs) for timing."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(rows, d, device="cuda", generator=g).to(dtype)
+    scale = 1 + 0.1 * torch.randn(d, device="cuda", generator=g)
+    dy = torch.randn(rows, d, device="cuda", generator=g).to(dtype)
+    dres = torch.randn(rows, d, device="cuda", generator=g).to(dtype)
+    tag = f"[{rows}x{d} {str(dtype).split('.')[-1]}]"
+    y, rstd = fn.rms_fwd(x, scale)
+    y_r, rstd_r = fn.ref_rms_fwd(x, scale)
+    errs = {"rms_fwd": max(
+        compare(torch, f"rms_fwd y {tag}", y, y_r, 1e-5, failures),
+        compare(torch, f"rms_fwd rstd {tag}", rstd, rstd_r, 1e-5, failures))}
+    errs["rms_bwd"] = 0.0
+    for res in (None, dres):
+        dx, dscale = fn.rms_bwd(x, rstd_r, scale, dy, res)
+        dx_r, dscale_r = fn.ref_rms_bwd(x, rstd_r, scale, dy, res)
+        case = f"{tag}{' +dres' if res is not None else ''}"
+        e = [compare(torch, f"rms_bwd dx {case}", dx, dx_r, 1e-4, failures)]
+        if dtype == torch.float32:
+            e.append(compare(torch, f"rms_bwd dscale {case}", dscale,
+                             dscale_r, 1e-4, failures))
+        else:
+            e.append(float((dscale - dscale_r).abs().max()))
+            c = cosine(torch, dscale, dscale_r)
+            if not c > 0.9999:
+                failures.append(f"rms_bwd dscale {case}: cosine {c}")
+        errs["rms_bwd"] = max(errs["rms_bwd"], *e)
+    torch.cuda.synchronize()
+    return errs, dict(x=x, scale=scale, dy=dy, dres=dres, rstd=rstd_r)
+
+
+def time_rms(torch, fn, inp, spec, flush):
+    """{rms_fwd, rms_bwd: {ms, plain_ms, library_ms, bound_ms, ...}}. The
+    yardstick is ``F.rms_norm`` (weight in the input's dtype) and its
+    autograd backward for (x, weight), which has no dres add. The bound
+    counts each input read once and each output written once: rms_bwd's
+    dscale is [D]; the kernel's per-16-row partials are not counted."""
+    F = torch.nn.functional
+    x, scale, dy, dres, rstd = (inp[k] for k in ("x", "scale", "dy", "dres",
+                                                 "rstd"))
+    rows, d = x.shape
+    es = x.element_size()
+    w_l = scale.to(x.dtype)
+    x_l = x.detach().requires_grad_(True)
+    w_g = w_l.detach().requires_grad_(True)
+    y_l = F.rms_norm(x_l, (d,), w_g, fn.RMS_EPS)
+    cases = {
+        "rms_fwd": (lambda: fn.rms_fwd(x, scale),
+                    lambda: fn.ref_rms_fwd(x, scale),
+                    lambda: F.rms_norm(x, (d,), w_l, fn.RMS_EPS),
+                    2 * rows * d * es + rows * 4 + d * 4, 4 * rows * d),
+        "rms_bwd": (lambda: fn.rms_bwd(x, rstd, scale, dy, dres),
+                    lambda: fn.ref_rms_bwd(x, rstd, scale, dy, dres),
+                    lambda: torch.autograd.grad(y_l, (x_l, w_g), dy,
+                                                retain_graph=True),
+                    4 * rows * d * es + rows * 4 + 2 * d * 4, 10 * rows * d),
+    }
+    return {name: {"ms": device_ms(torch, kern, flush),
+                   "plain_ms": device_ms(torch, plain, flush),
+                   "library_ms": device_ms(torch, lib, flush),
+                   **bound(nbytes, ops, spec, "fp32_flops")}
+            for name, (kern, plain, lib, nbytes, ops) in cases.items()}
+
+
+def bound(nbytes, ops, spec, rate):
+    """The least time for ``nbytes`` of device-memory traffic and ``ops``
+    operations at the ``rate`` peak: the larger of the two, and which."""
+    t_bytes = nbytes / spec["hbm_bytes_s"] * 1e3
+    t_ops = ops / spec[rate] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes,
-            "operations": ops,
-        }
-    return out
+            "bytes": nbytes, "operations": ops}
 
 
-def flash_inputs(torch, b, t, h, d, seed):
-    """q, k, v as strided views of one [B, T, 3*H*D] bf16 tensor (the
-    model's layout) and a contiguous dO, from a seed."""
+def flash_inputs(torch, b, t, h, d, seed, packed=True):
+    """q, k, v and a contiguous dO, from a seed: with ``packed`` q, k, v are
+    strided views of one [B, T, 3*H*D] bf16 tensor (GPT-2's layout), else
+    three contiguous [B, T, H, D] tensors (Llama's, after the GQA repeat)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(b, t, 3 * h * d, device="cuda",
                       generator=g).to(torch.bfloat16)
     q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    if not packed:
+        q, k, v = (x.contiguous() for x in (q, k, v))
     do = torch.randn(b, t, h, d, device="cuda", generator=g).to(torch.bfloat16)
     return q, k, v, do
 
 
-def check_flash(torch, fa, case, failures, seed):
+def check_flash(torch, fa, case, failures, seed, packed=True):
     """Each flash kernel against its plain version at one shape; returns
     (max abs error by kernel, inputs) for timing."""
     b, t, h, d, causal = case
-    q, k, v, do = flash_inputs(torch, b, t, h, d, seed)
+    q, k, v, do = flash_inputs(torch, b, t, h, d, seed, packed)
     kw = dict(softmax_scale=d ** -0.5, causal=causal)
     tag = f"[B={b} T={t} H={h} D={d} {'causal' if causal else 'full'}]"
     out, lse = fa.flash_fwd(q, k, v, **kw)
@@ -353,22 +444,14 @@ def time_flash(torch, fa, inp, spec, flush):
                      lambda: fa.ref_flash_dq(q, k, v, do, lse, delta, **kw),
                      None, 5 * act + 2 * stat, 6 * bh * pairs * d),
     }
-    out = {}
-    for name, (kern, plain, lib, nbytes, ops) in cases.items():
-        t_bytes = nbytes / spec["hbm_bytes_s"] * 1e3
-        t_ops = ops / spec["bf16_flops"] * 1e3
-        out[name] = {
-            "ms": device_ms(torch, kern, flush),
-            "plain_ms": device_ms(torch, plain, flush),
-            "library_ms": device_ms(torch, lib, flush) if lib else sdpa_bwd,
-            "library": ("scaled_dot_product_attention forward" if lib else
-                        "scaled_dot_product_attention backward (dq, dk, dv)"),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes,
-            "operations": ops,
-        }
-    return out
+    return {name: {
+        "ms": device_ms(torch, kern, flush),
+        "plain_ms": device_ms(torch, plain, flush),
+        "library_ms": device_ms(torch, lib, flush) if lib else sdpa_bwd,
+        "library": ("scaled_dot_product_attention forward" if lib else
+                    "scaled_dot_product_attention backward (dq, dk, dv)"),
+        **bound(nbytes, ops, spec, "bf16_flops")}
+        for name, (kern, plain, lib, nbytes, ops) in cases.items()}
 
 
 def time_crossover(torch, fa, dense, flush):
@@ -389,14 +472,15 @@ def time_crossover(torch, fa, dense, flush):
     return rows
 
 
-def run_step(torch, counters, cfg, warmup, steps, expected, measure_gpt2):
+def run_step(torch, counters, label, measure, cfg, batch, warmup, steps,
+             expected):
     """One measured train-step run with every kernel counter set to 0 just
     before it; returns the step dict with launches and launches per step,
     after checking the loss and the per-step launch counts."""
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.clear()
-    step = measure_gpt2(cfg, BATCH, steps=steps, warmup=warmup, device="cuda")
+    step = measure(cfg, batch, steps=steps, warmup=warmup, device="cuda")
     launches = {k: sum(c[k] for c in counters) for k in PORTED}
     step["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     step["launches"] = launches
@@ -404,7 +488,7 @@ def run_step(torch, counters, cfg, warmup, steps, expected, measure_gpt2):
     step["launches_per_step"] = {k: launches[k] / n_steps for k in PORTED}
     losses = step["losses"]
     print(f"train step ({'flash' if cfg.use_flash else 'dense'} attention): "
-          f"GPT-2 {cfg.n_params / 1e6:.0f}M batch {BATCH} seq {cfg.seq_len}: "
+          f"{label} {cfg.n_params / 1e6:.0f}M batch {batch} seq {cfg.seq_len}: "
           f"{step['tok_s']:.1f} tok/s, {step['ms_step']:.2f} ms/step, MFU "
           f"{step['mfu']:.2f}%, max_memory_allocated "
           f"{step['max_memory_allocated'] / 2**30:.2f} GiB, losses "
@@ -416,6 +500,39 @@ def run_step(torch, counters, cfg, warmup, steps, expected, measure_gpt2):
         got = step["launches_per_step"][k]
         require(got == want, f"{k}: {got} launches per step, expected {want}")
     return step
+
+
+def compare_paths(torch, loss_fn, params, tokens, paths):
+    """Loss and whole-tree gradient of every path in ``paths`` (name ->
+    config) on the same weights and batch; each path other than "plain"
+    against "plain": loss within rtol 1e-2, gradient cosine > 0.999."""
+    from ray_tpu_torch._tree import tree_leaves
+    from ray_tpu_torch.train.train_step import value_and_grad
+
+    out = {}
+    for pname, c in paths.items():
+        loss, grads = value_and_grad(lambda p, b: loss_fn(p, b, c), params,
+                                     {"tokens": tokens})
+        leaves = tree_leaves(grads)
+        require(all(a.shape == p.shape for a, p in zip(leaves,
+                                                       tree_leaves(params))),
+                f"{pname}: gradient shapes differ from the parameters'")
+        require(all(bool(torch.isfinite(a).all()) for a in leaves),
+                f"{pname}: non-finite gradients")
+        out[pname] = (float(loss), torch.cat([a.flatten() for a in leaves]))
+        del grads, leaves
+    loss_p, flat_p = out.pop("plain")
+    report = {}
+    for pname, (loss_k, flat_k) in out.items():
+        cos = cosine(torch, flat_k, flat_p)
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        report[pname] = {"loss_kernel": loss_k, "loss_plain": loss_p,
+                         "loss_rel_diff": rel, "grad_cosine": cos}
+        print(f"{pname} vs plain path: loss {loss_k:.6f} vs {loss_p:.6f} "
+              f"(rel {rel:.2e}), gradient cosine {cos:.6f}")
+        require(rel <= 1e-2, f"{pname}: losses differ by {rel:.3e} (rtol 1e-2)")
+        require(cos > 0.999, f"{pname}: gradient cosine {cos} <= 0.999")
+    return report
 
 
 # -- main ----------------------------------------------------------------------
@@ -442,15 +559,15 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
     name = torch.cuda.get_device_name(0)
 
-    from ray_tpu_torch._tree import tree_leaves
     from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init, gpt2_loss
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init, llama_loss
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import fused_norm as fn
     from ray_tpu_torch.ops.attention import dense_causal_attention
     from ray_tpu_torch.scripts.measure import (FUSED_DENSE_FLAGS, FUSED_FLAGS,
-                                               device_spec, measure_gpt2)
-    from ray_tpu_torch.train.train_step import value_and_grad
+                                               LLAMA_FLAGS, device_spec,
+                                               measure_gpt2, measure_llama)
 
     OUT.mkdir(exist_ok=True)
     report = {"nvidia_smi": smi, "device": name}
@@ -471,19 +588,31 @@ def main() -> int:
     failures = []
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
+        key = str(dtype).split(".")[-1]
         errs, inp = check_kernels(torch, fn, ROWS, D_MODEL, dtype, failures, 0)
         times = time_kernels(torch, fn, inp, spec, flush)
-        key = str(dtype).split(".")[-1]
         results[key] = {k: {"max_abs_err": errs[k], **times[k]}
                         for k in NORM_KERNELS}
+        del inp
+        errs, inp = check_rms(torch, fn, L_ROWS, L_D_MODEL, dtype, failures, 1)
+        times = time_rms(torch, fn, inp, spec, flush)
+        results[key].update({k: {"max_abs_err": errs[k], **times[k]}
+                             for k in RMS_KERNELS})
         del inp
     for rows, d in ((37, 100), (64, 8192), (37, 2050)):
         for dtype in (torch.bfloat16, torch.float32):
             check_kernels(torch, fn, rows, d, dtype, failures, rows + d)
+            check_rms(torch, fn, rows, d, dtype, failures, rows + d + 1)
     errs, inp = check_flash(torch, fa, FLASH_CASES[0], failures, 0)
     times = time_flash(torch, fa, inp, spec, flush)
     results["bfloat16"].update({k: {"max_abs_err": errs[k], **times[k]}
                                 for k in FLASH_KERNELS})
+    del inp
+    errs, inp = check_flash(torch, fa, FLASH_LLAMA_CASE, failures, 7,
+                            packed=False)
+    times = time_flash(torch, fa, inp, spec, flush)
+    report["flash_llama_shape"] = {k: {"max_abs_err": errs[k], **times[k]}
+                                   for k in FLASH_KERNELS}
     del inp
     report["flash_odd_shapes"] = [
         {"case": list(case), "max_abs_err": check_flash(
@@ -492,91 +621,100 @@ def main() -> int:
     report["attention_crossover"] = time_crossover(
         torch, fa, dense_causal_attention, flush)
     report["kernels"] = results
+    gpt2_shape = f"R={ROWS} D={D_MODEL}"
+    llama_shape = f"R={L_ROWS} D={L_D_MODEL}"
     for k in PORTED:
-        r = results["bfloat16"][k]
-        shape = (f"B={BATCH} T={SEQ} H={N_HEAD} D=64" if k in FLASH_KERNELS
-                 else f"R={ROWS}")
-        print(f"{k}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"library_ms={r['library_ms']:.4f} bound_us={r['bound_ms'] * 1e3:.1f} "
-              f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e} "
-              f"launches_per_step={EXPECTED_PER_STEP[k]} [bf16, {shape}]")
+        rows = [("", results["bfloat16"][k])]
+        if k in FLASH_KERNELS:
+            rows.append((" llama", report["flash_llama_shape"][k]))
+        for tag, r in rows:
+            if k in FLASH_KERNELS:
+                shape = (f"B={L_BATCH} T={L_SEQ} H={L_N_HEAD} D=64" if tag else
+                         f"B={BATCH} T={SEQ} H={N_HEAD} D=64")
+            else:
+                shape = llama_shape if k in RMS_KERNELS else gpt2_shape
+            per_step = (EXPECTED_LLAMA if k in RMS_KERNELS or tag
+                        else EXPECTED_PER_STEP)[k]
+            print(f"{k}{tag}: kernel_ms={r['ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms={r['library_ms']:.4f} "
+                  f"bound_us={r['bound_ms'] * 1e3:.1f} ({r['bound_by']}) "
+                  f"max_abs_err={r['max_abs_err']:.3e} "
+                  f"launches_per_step={per_step} [bf16, {shape}]")
     require(not failures, "kernel vs plain: " + "; ".join(failures))
 
-    # Phase 4: the GPT-2-small train step, the main path (flash) first.
+    # Phase 4: the train steps -- GPT-2's main path (flash) first, then
+    # GPT-2 with dense attention, then Llama's main path.
     counters = (fn.KERNEL_INVOCATIONS, fa.KERNEL_INVOCATIONS)
     cfg = GPT2Config(**FUSED_FLAGS)
-    step = run_step(torch, counters, cfg, WARMUP, STEPS, EXPECTED_PER_STEP,
-                    measure_gpt2)
+    step = run_step(torch, counters, "GPT-2", measure_gpt2, cfg, BATCH,
+                    WARMUP, STEPS, EXPECTED_PER_STEP)
     report["train_step"] = step
     report["train_step_dense"] = run_step(
-        torch, counters, GPT2Config(**FUSED_DENSE_FLAGS), DENSE_WARMUP,
-        DENSE_STEPS, EXPECTED_DENSE, measure_gpt2)
+        torch, counters, "GPT-2", measure_gpt2, GPT2Config(**FUSED_DENSE_FLAGS),
+        BATCH, DENSE_WARMUP, DENSE_STEPS, EXPECTED_DENSE)
+    lcfg = LlamaConfig(**LLAMA_FLAGS)
+    lstep = run_step(torch, counters, "Llama", measure_llama, lcfg, L_BATCH,
+                     WARMUP, STEPS, EXPECTED_LLAMA)
+    report["train_step_llama"] = lstep
 
     # Phase 5: kernel paths vs the plain path, same weights and batch.
-    params = gpt2_init(torch.Generator(device="cuda").manual_seed(0), cfg,
-                       device="cuda")
+    gen = torch.Generator(device="cuda")
+    params = gpt2_init(gen.manual_seed(0), cfg, device="cuda")
     tokens = torch.randint(0, cfg.vocab_size, (4, cfg.seq_len + 1),
-                           device="cuda",
-                           generator=torch.Generator(device="cuda").manual_seed(2))
-    paths = {"flash+fused": cfg,
-             "dense+fused": GPT2Config(**FUSED_DENSE_FLAGS),
-             "plain": dataclasses.replace(GPT2Config(**FUSED_DENSE_FLAGS),
-                                          fused_norm=False)}
-    out = {}
-    for pname, c in paths.items():
-        loss, grads = value_and_grad(lambda p, b: gpt2_loss(p, b, c), params,
-                                     {"tokens": tokens})
-        leaves = tree_leaves(grads)
-        require(all(a.shape == p.shape for a, p in zip(leaves,
-                                                       tree_leaves(params))),
-                f"{pname}: gradient shapes differ from the parameters'")
-        require(all(bool(torch.isfinite(a).all()) for a in leaves),
-                f"{pname}: non-finite gradients")
-        out[pname] = (float(loss), torch.cat([a.flatten() for a in leaves]))
-    loss_p, flat_p = out["plain"]
-    report["kernel_vs_plain_path"] = {}
-    for pname in ("flash+fused", "dense+fused"):
-        loss_k, flat_k = out[pname]
-        cos = cosine(torch, flat_k, flat_p)
-        rel = abs(loss_k - loss_p) / abs(loss_p)
-        report["kernel_vs_plain_path"][pname] = {
-            "loss_kernel": loss_k, "loss_plain": loss_p,
-            "loss_rel_diff": rel, "grad_cosine": cos}
-        print(f"{pname} vs plain path: loss {loss_k:.6f} vs {loss_p:.6f} "
-              f"(rel {rel:.2e}), gradient cosine {cos:.6f}")
-        require(rel <= 1e-2, f"{pname}: losses differ by {rel:.3e} (rtol 1e-2)")
-        require(cos > 0.999, f"{pname}: gradient cosine {cos} <= 0.999")
+                           device="cuda", generator=gen.manual_seed(2))
+    dense = GPT2Config(**FUSED_DENSE_FLAGS)
+    report["kernel_vs_plain_path"] = compare_paths(
+        torch, gpt2_loss, params, tokens,
+        {"flash+fused": cfg, "dense+fused": dense,
+         "plain": dataclasses.replace(dense, fused_norm=False)})
+    del params
+    params = llama_init(gen.manual_seed(0), lcfg, device="cuda")
+    tokens = torch.randint(0, lcfg.vocab_size, (2, lcfg.seq_len + 1),
+                           device="cuda", generator=gen.manual_seed(2))
+    report["kernel_vs_plain_path"].update(compare_paths(
+        torch, llama_loss, params, tokens,
+        {"llama flash+rms": lcfg,
+         "llama dense+rms": dataclasses.replace(lcfg, use_flash=False),
+         "plain": dataclasses.replace(lcfg, fused_norm=False,
+                                      use_flash=False)}))
+    del params
 
-    # Phase 6: the kernels line.
-    kernels, not_ported = [], []
-    launches = step["launches"]
+    # Phase 6: the kernels line. Each kernel's launches are those of the
+    # main path it belongs to (the flash kernels: GPT-2's, with Llama's
+    # beside them).
+    kernels = []
     for kname, where, body in TPU_KERNELS:
-        if kname not in PORTED:
-            not_ported.append({"name": kname, "replaces": where, "body": body,
-                               "status": "not_ported"})
-            continue
         bf = results["bfloat16"][kname]
+        main = lstep if kname in RMS_KERNELS else step
         entry = {
             "name": kname, "route": "cuda",
             "source": SOURCES["flash_attention" if kname in FLASH_KERNELS
                               else "fused_norm"],
-            "replaces": where, "launches": launches[kname],
+            "replaces": where, "launches": main["launches"][kname],
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
             "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
             "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
-            "status": "ported+checked",
-            "launches_per_step": step["launches_per_step"][kname],
+            "status": "ported+checked", "body": body,
+            "main_path": "llama" if kname in RMS_KERNELS else "gpt2",
+            "launches_per_step": main["launches_per_step"][kname],
             "dtype": "bfloat16",
         }
-        if kname in NORM_KERNELS:
+        if kname in FLASH_KERNELS:
+            entry["library"] = bf["library"]
+            entry["llama"] = {
+                "launches": lstep["launches"][kname],
+                "launches_per_step": lstep["launches_per_step"][kname],
+                **{k: report["flash_llama_shape"][kname][k] for k in
+                   ("max_abs_err", "ms", "plain_ms", "library_ms",
+                    "bound_ms")}}
+        else:
             f32 = results["float32"][kname]
             entry["fp32"] = {k: f32[k] for k in ("max_abs_err", "ms",
                                                  "plain_ms", "library_ms",
                                                  "bound_ms")}
-        else:
-            entry["library"] = bf["library"]
         kernels.append(entry)
-    report["kernels_line"] = {"kernels": kernels, "not_ported": not_ported}
+    report["kernels_line"] = {"kernels": kernels, "not_ported": []}
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps(report["kernels_line"]))
 

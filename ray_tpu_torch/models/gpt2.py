@@ -11,10 +11,11 @@ What differs from the JAX module, and why:
   over per-layer views of the stacked leaves (PyTorch runs eagerly; there
   is no trace to shorten).
 * ``with_logical_constraint`` is dropped: this slice runs on one device.
-* ``remat`` maps onto ``torch.utils.checkpoint`` per block: ``True`` saves
-  nothing inside the block, ``"dots"`` saves only ``aten.mm``/``aten.addmm``
-  outputs (the four projections, as ``dots_with_no_batch_dims_saveable``;
-  the attention products are recomputed), ``False`` saves everything.
+* ``remat`` maps onto ``torch.utils.checkpoint`` per block
+  (``models/_remat.py``): ``True`` saves nothing inside the block,
+  ``"dots"`` saves only ``aten.mm``/``aten.addmm`` outputs (the four
+  projections; the attention products are recomputed), ``False`` saves
+  everything.
 * Where JAX multiplies bf16 operands with ``preferred_element_type=float32``
   the product is taken in fp32 on the upcast operands (the upcast is exact).
 * ``attention_impl`` other than ``"auto"`` raises: ring and Ulysses
@@ -29,13 +30,14 @@ import math
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import (
-    CheckpointPolicy,
-    checkpoint,
-    create_selective_checkpoint_contexts,
-)
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.models._remat import (
+    check_attention_impl,
+    remat_block,
+    run_layers,
+)
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.ops.fused_norm import (
     fused_gelu,
@@ -166,43 +168,14 @@ def _block(x, p: Params, cfg: GPT2Config):
     return x_skip + y @ p["mlp_out_w"].to(dt) + p["mlp_out_b"].to(dt)
 
 
-_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
-
-
-def _save_dots(ctx, op, *args, **kwargs):
-    if op in _SAVED_DOTS:
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
-
-
-def _block_fn(cfg: GPT2Config):
-    block = functools.partial(_block, cfg=cfg)
-    if cfg.remat == "dots":
-        ctx_fn = functools.partial(create_selective_checkpoint_contexts,
-                                   _save_dots)
-        return lambda x, p: checkpoint(block, x, p, use_reentrant=False,
-                                       context_fn=ctx_fn)
-    if cfg.remat:
-        return lambda x, p: checkpoint(block, x, p, use_reentrant=False)
-    return block
-
-
 def gpt2_hidden(params: Params, tokens, cfg: GPT2Config):
     """tokens [B, T] int -> final-layernormed hidden states [B, T, D]."""
-    if cfg.attention_impl != "auto":
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} is ported in a later "
-            "slice; use 'auto'")
+    check_attention_impl(cfg.attention_impl)
     t = tokens.shape[1]
     dt = cfg.dtype
     x = params["wte"].to(dt)[tokens] + params["wpe"].to(dt)[:t]
-    block_fn = _block_fn(cfg)
-    # unbind, not v[i]: its backward stacks the per-layer gradients once,
-    # where indexing would scatter each layer's gradient into a zeroed
-    # full-size [n_layer, ...] tensor and add n_layer of those up.
-    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
-    for i in range(cfg.n_layer):
-        x = block_fn(x, {k: v[i] for k, v in layers.items()})
+    block_fn = remat_block(functools.partial(_block, cfg=cfg), cfg.remat)
+    x = run_layers(block_fn, x, params["blocks"], cfg.n_layer)
     if cfg.fused_norm:
         return fused_layer_norm(x, params["lnf_scale"], params["lnf_bias"])
     return _layer_norm(x, params["lnf_scale"], params["lnf_bias"])

@@ -1,5 +1,5 @@
-"""Compute ops: attention (dense and flash) and the fused LayerNorm/GELU
-kernels."""
+"""Compute ops: attention (dense and flash) and the fused LayerNorm,
+RMSNorm and GELU kernels."""
 
 from ray_tpu_torch.ops.attention import causal_attention, dense_causal_attention
 from ray_tpu_torch.ops.flash_attention import flash_causal_attention
@@ -7,6 +7,8 @@ from ray_tpu_torch.ops.fused_norm import (
     fused_gelu,
     fused_layer_norm,
     fused_layer_norm_residual,
+    fused_rms_norm,
+    fused_rms_norm_residual,
 )
 
 __all__ = [
@@ -16,4 +18,6 @@ __all__ = [
     "fused_gelu",
     "fused_layer_norm",
     "fused_layer_norm_residual",
+    "fused_rms_norm",
+    "fused_rms_norm_residual",
 ]

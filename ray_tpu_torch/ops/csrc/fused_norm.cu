@@ -1,5 +1,6 @@
-// Fused LayerNorm forward/backward and tanh-GELU forward/backward for Hopper
-// (sm_90a), the counterparts of the Pallas kernels in ray_tpu/ops/fused_norm.py.
+// Fused LayerNorm and RMSNorm forward/backward and tanh-GELU forward/backward
+// for Hopper (sm_90a), the counterparts of the Pallas kernels in
+// ray_tpu/ops/fused_norm.py.
 //
 // Built by ray_tpu_torch/ops/_build.py into a shared library with a plain C
 // interface and bound with ctypes from ray_tpu_torch/ops/fused_norm.py. Every
@@ -9,7 +10,7 @@
 //
 // I/O is float or __nv_bfloat16 (dtype code 0 or 1); all arithmetic is fp32.
 //
-// All four kernels are bound by device-memory bytes, not by operations: a
+// All six kernels are bound by device-memory bytes, not by operations: a
 // LayerNorm does ~8-14 fp32 operations per element it reads, GELU ~20, far
 // below the ~20 operations per byte at which the H100's fp32 units, let alone
 // its tensor cores, become the limit. So the designs aim at moving each byte
@@ -99,6 +100,7 @@ __device__ __forceinline__ float row_sum(float v, float* red) {
 
 // ---------------------------------------------------------------------------
 // ln_fwd: replaces _ln_fwd_kernel (ray_tpu/ops/fused_norm.py:121).
+// rms_fwd (norm_fwd with RMS = true): replaces _rms_fwd_kernel (:137).
 //
 // A row of D elements is spread over blockDim.x threads (a multiple of 32),
 // each holding up to kElems elements in registers; blockDim.y rows share a
@@ -106,15 +108,19 @@ __device__ __forceinline__ float row_sum(float v, float* red) {
 // are two passes over registers, each a warp-shuffle (plus shared-memory when
 // the row spans warps) reduction. Writes y, and mu and rstd as [R] fp32 -- the
 // only statistics the backward needs (8 bytes per row).
-// Bound: bytes, 2*R*D*sizeof(T) + 8*R (+ scale and bias, 8*D).
+// The RMS variant skips the mean: one reduction, rstd = rsqrt(mean(x^2) + eps),
+// y = x * rstd * scale; bias and mean_out are unused (null) and only rstd is
+// written (4 bytes per row).
+// Bound: bytes, 2*R*D*sizeof(T) + 8*R (+ scale and bias, 8*D); RMS 4*R + 4*D.
 // ---------------------------------------------------------------------------
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kMaxRowThreads) ln_fwd_kernel(const T* __restrict__ x,
-                              const float* __restrict__ scale,
-                              const float* __restrict__ bias, T* __restrict__ y,
-                              float* __restrict__ mean_out,
-                              float* __restrict__ rstd_out, int rows, int d,
-                              float eps) {
+template <typename T, int VEC, bool RMS>
+__device__ __forceinline__ void norm_fwd(const T* __restrict__ x,
+                                         const float* __restrict__ scale,
+                                         const float* __restrict__ bias,
+                                         T* __restrict__ y,
+                                         float* __restrict__ mean_out,
+                                         float* __restrict__ rstd_out,
+                                         int rows, int d, float eps) {
   constexpr int NV = kElems / VEC;
   __shared__ float red[8 * 32];
   const int row = blockIdx.x * blockDim.y + threadIdx.y;
@@ -135,7 +141,8 @@ __global__ void __launch_bounds__(kMaxRowThreads) ln_fwd_kernel(const T* __restr
       for (int j = 0; j < VEC; ++j) v[k][j] = 0.f;
     }
   }
-  const float mu = row_sum(sum, red) / d;
+  float mu = 0.f;
+  if constexpr (!RMS) mu = row_sum(sum, red) / d;
 
   float sq = 0.f;
 #pragma unroll
@@ -158,20 +165,47 @@ __global__ void __launch_bounds__(kMaxRowThreads) ln_fwd_kernel(const T* __restr
     if (c < d) {
       float o[VEC];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j)
-        o[j] = (v[k][j] - mu) * rstd * scale[c + j] + bias[c + j];
+      for (int j = 0; j < VEC; ++j) {
+        if constexpr (RMS)
+          o[j] = v[k][j] * rstd * scale[c + j];
+        else
+          o[j] = (v[k][j] - mu) * rstd * scale[c + j] + bias[c + j];
+      }
       store<T, VEC>(y + off + c, o);
     }
   }
   if (threadIdx.x == 0) {
-    mean_out[row] = mu;
+    if constexpr (!RMS) mean_out[row] = mu;
     rstd_out[row] = rstd;
   }
+}
+
+// Two entry points over one body, so that a profile names them apart.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kMaxRowThreads)
+    ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                  const float* __restrict__ bias, T* __restrict__ y,
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                  int rows, int d, float eps) {
+  norm_fwd<T, VEC, false>(x, scale, bias, y, mean_out, rstd_out, rows, d, eps);
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kMaxRowThreads)
+    rms_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                   const float* __restrict__ bias, T* __restrict__ y,
+                   float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                   int rows, int d, float eps) {
+  norm_fwd<T, VEC, true>(x, scale, bias, y, mean_out, rstd_out, rows, d, eps);
 }
 
 // ---------------------------------------------------------------------------
 // ln_bwd: replaces the LayerNorm variant of _norm_bwd_kernel
 // (ray_tpu/ops/fused_norm.py:184), in two phases inside one kernel.
+// rms_bwd (norm_bwd with RMS = true): replaces its RMSNorm variant, the same
+// two phases with mu = 0 and no c1: x-hat = x*rstd,
+// dx = rstd*(dy*scale - x-hat*c2) (+ dres), and only the dscale partials
+// (mean and dbias_part are unused, null).
 //
 // (a) Per row, x-hat is rebuilt from the saved fp32 mu and rstd; the two row
 //     reductions c1 = mean(dy*scale) and c2 = mean(dy*scale*x-hat) give
@@ -183,21 +217,23 @@ __global__ void __launch_bounds__(kMaxRowThreads) ln_fwd_kernel(const T* __restr
 //     memory and written as one [D] fp32 partial row for dscale and one for
 //     dbias. The caller sums the [n_blocks, D] partials. No atomics: the result
 //     is the same on every run.
-// Bound: bytes, 4*R*D*sizeof(T) with dres (3 reads, 1 write) + 8*R + partials.
+// Bound: bytes, 4*R*D*sizeof(T) with dres (3 reads, 1 write) + 8*R + partials
+// (RMS: 4*R and one partial row per CTA).
 // ---------------------------------------------------------------------------
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kMaxRowThreads) ln_bwd_kernel(const T* __restrict__ x,
-                              const float* __restrict__ mean,
-                              const float* __restrict__ rstd,
-                              const float* __restrict__ scale,
-                              const T* __restrict__ dy,
-                              const T* __restrict__ dres, T* __restrict__ dx,
-                              float* __restrict__ dscale_part,
-                              float* __restrict__ dbias_part, int rows,
-                              int d) {
+template <typename T, int VEC, bool RMS>
+__device__ __forceinline__ void norm_bwd(const T* __restrict__ x,
+                                         const float* __restrict__ mean,
+                                         const float* __restrict__ rstd,
+                                         const float* __restrict__ scale,
+                                         const T* __restrict__ dy,
+                                         const T* __restrict__ dres,
+                                         T* __restrict__ dx,
+                                         float* __restrict__ dscale_part,
+                                         float* __restrict__ dbias_part,
+                                         int rows, int d) {
   constexpr int NV = kElems / VEC;
   __shared__ float red[8 * 32];
-  __shared__ float comb[2][kElems * kCtaThreads];
+  __shared__ float comb[RMS ? 1 : 2][kElems * kCtaThreads];  // dscale(, dbias)
 
   float acc_s[NV][VEC], acc_b[NV][VEC];
 #pragma unroll
@@ -211,7 +247,7 @@ __global__ void __launch_bounds__(kMaxRowThreads) ln_bwd_kernel(const T* __restr
     const int row = row0 + r;
     const bool live = row < rows;
     const size_t off = (size_t)(live ? row : 0) * d;
-    const float mu = live ? mean[row] : 0.f;
+    const float mu = (live && !RMS) ? mean[row] : 0.f;
     const float rs = live ? rstd[row] : 0.f;
 
     float xh[NV][VEC], g[NV][VEC];
@@ -226,17 +262,20 @@ __global__ void __launch_bounds__(kMaxRowThreads) ln_bwd_kernel(const T* __restr
         for (int j = 0; j < VEC; ++j) {
           xh[k][j] = (xh[k][j] - mu) * rs;
           const float dxh = g[k][j] * scale[c + j];
-          s1 += dxh;
           s2 += dxh * xh[k][j];
           acc_s[k][j] += g[k][j] * xh[k][j];
-          acc_b[k][j] += g[k][j];
+          if constexpr (!RMS) {
+            s1 += dxh;
+            acc_b[k][j] += g[k][j];
+          }
         }
       } else {
 #pragma unroll
         for (int j = 0; j < VEC; ++j) xh[k][j] = g[k][j] = 0.f;
       }
     }
-    const float c1 = row_sum(s1, red) / d;
+    float c1 = 0.f;
+    if constexpr (!RMS) c1 = row_sum(s1, red) / d;
     const float c2 = row_sum(s2, red) / d;
     if (!live) continue;
 
@@ -269,7 +308,7 @@ __global__ void __launch_bounds__(kMaxRowThreads) ln_bwd_kernel(const T* __restr
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
           comb[0][slot + k * VEC + j] = acc_s[k][j];
-          comb[1][slot + k * VEC + j] = acc_b[k][j];
+          if constexpr (!RMS) comb[1][slot + k * VEC + j] = acc_b[k][j];
         }
     }
     __syncthreads();
@@ -279,7 +318,7 @@ __global__ void __launch_bounds__(kMaxRowThreads) ln_bwd_kernel(const T* __restr
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
           acc_s[k][j] += comb[0][slot + k * VEC + j];
-          acc_b[k][j] += comb[1][slot + k * VEC + j];
+          if constexpr (!RMS) acc_b[k][j] += comb[1][slot + k * VEC + j];
         }
     }
   }
@@ -292,10 +331,34 @@ __global__ void __launch_bounds__(kMaxRowThreads) ln_bwd_kernel(const T* __restr
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
         dscale_part[prow + c + j] = acc_s[k][j];
-        dbias_part[prow + c + j] = acc_b[k][j];
+        if constexpr (!RMS) dbias_part[prow + c + j] = acc_b[k][j];
       }
     }
   }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kMaxRowThreads)
+    ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                  const float* __restrict__ rstd,
+                  const float* __restrict__ scale, const T* __restrict__ dy,
+                  const T* __restrict__ dres, T* __restrict__ dx,
+                  float* __restrict__ dscale_part,
+                  float* __restrict__ dbias_part, int rows, int d) {
+  norm_bwd<T, VEC, false>(x, mean, rstd, scale, dy, dres, dx, dscale_part,
+                          dbias_part, rows, d);
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kMaxRowThreads)
+    rms_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                   const float* __restrict__ rstd,
+                   const float* __restrict__ scale, const T* __restrict__ dy,
+                   const T* __restrict__ dres, T* __restrict__ dx,
+                   float* __restrict__ dscale_part,
+                   float* __restrict__ dbias_part, int rows, int d) {
+  norm_bwd<T, VEC, true>(x, mean, rstd, scale, dy, dres, dx, dscale_part,
+                         dbias_part, rows, d);
 }
 
 // ---------------------------------------------------------------------------
@@ -372,7 +435,7 @@ dim3 row_block(int d, int vec) {
   return dim3(tpr, y);
 }
 
-template <typename T>
+template <typename T, bool RMS>
 cudaError_t ln_fwd_launch(const void* x, const void* scale, const void* bias,
                           void* y, void* mean, void* rstd, int rows, int d,
                           float eps, cudaStream_t stream) {
@@ -386,14 +449,21 @@ cudaError_t ln_fwd_launch(const void* x, const void* scale, const void* bias,
         static_cast<const float*>(bias), static_cast<T*>(y),
         static_cast<float*>(mean), static_cast<float*>(rstd), rows, d, eps);
   };
-  if (vec)
-    args(ln_fwd_kernel<T, V>);
-  else
-    args(ln_fwd_kernel<T, 1>);
+  if constexpr (RMS) {
+    if (vec)
+      args(rms_fwd_kernel<T, V>);
+    else
+      args(rms_fwd_kernel<T, 1>);
+  } else {
+    if (vec)
+      args(ln_fwd_kernel<T, V>);
+    else
+      args(ln_fwd_kernel<T, 1>);
+  }
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool RMS>
 cudaError_t ln_bwd_launch(const void* x, const void* mean, const void* rstd,
                           const void* scale, const void* dy, const void* dres,
                           void* dx, void* dscale_part, void* dbias_part,
@@ -411,10 +481,17 @@ cudaError_t ln_bwd_launch(const void* x, const void* mean, const void* rstd,
         static_cast<T*>(dx), static_cast<float*>(dscale_part),
         static_cast<float*>(dbias_part), rows, d);
   };
-  if (vec)
-    args(ln_bwd_kernel<T, V>);
-  else
-    args(ln_bwd_kernel<T, 1>);
+  if constexpr (RMS) {
+    if (vec)
+      args(rms_bwd_kernel<T, V>);
+    else
+      args(rms_bwd_kernel<T, 1>);
+  } else {
+    if (vec)
+      args(ln_bwd_kernel<T, V>);
+    else
+      args(ln_bwd_kernel<T, 1>);
+  }
   return cudaGetLastError();
 }
 
@@ -457,7 +534,9 @@ cudaError_t gelu_launch(const void* x, const void* g, void* out, int64_t n,
 
 // ---------------------------------------------------------------------------
 // C interface. dtype: 0 = float32, 1 = bfloat16. Scale, bias, mean, rstd and
-// the partials are always float32. A zero-size call launches nothing.
+// the partials are always float32. A zero-size call launches nothing. The
+// LayerNorm and RMSNorm entry points share the row kernels (RMS template
+// flag) and the rt_ln_max_d / rt_ln_bwd_rows_per_block geometry.
 // ---------------------------------------------------------------------------
 extern "C" {
 
@@ -472,10 +551,11 @@ cudaError_t rt_ln_fwd(const void* x, const void* scale, const void* bias,
   if (rows == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return ln_fwd_launch<float>(x, scale, bias, y, mean, rstd, rows, d, eps, s);
+    return ln_fwd_launch<float, false>(x, scale, bias, y, mean, rstd, rows, d,
+                                       eps, s);
   if (dtype == 1)
-    return ln_fwd_launch<__nv_bfloat16>(x, scale, bias, y, mean, rstd, rows, d,
-                                        eps, s);
+    return ln_fwd_launch<__nv_bfloat16, false>(x, scale, bias, y, mean, rstd,
+                                               rows, d, eps, s);
   return cudaErrorInvalidValue;
 }
 
@@ -487,11 +567,44 @@ cudaError_t rt_ln_bwd(const void* x, const void* mean, const void* rstd,
   if (rows == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return ln_bwd_launch<float>(x, mean, rstd, scale, dy, dres, dx,
-                                dscale_part, dbias_part, rows, d, s);
+    return ln_bwd_launch<float, false>(x, mean, rstd, scale, dy, dres, dx,
+                                       dscale_part, dbias_part, rows, d, s);
   if (dtype == 1)
-    return ln_bwd_launch<__nv_bfloat16>(x, mean, rstd, scale, dy, dres, dx,
-                                        dscale_part, dbias_part, rows, d, s);
+    return ln_bwd_launch<__nv_bfloat16, false>(x, mean, rstd, scale, dy, dres,
+                                               dx, dscale_part, dbias_part,
+                                               rows, d, s);
+  return cudaErrorInvalidValue;
+}
+
+// RMSNorm: no bias, no mean, no dbias. dres may be null.
+cudaError_t rt_rms_fwd(const void* x, const void* scale, void* y, void* rstd,
+                       int rows, int d, float eps, int dtype, void* stream) {
+  if (rows < 0 || d < 1 || d > kMaxD) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return ln_fwd_launch<float, true>(x, scale, nullptr, y, nullptr, rstd,
+                                      rows, d, eps, s);
+  if (dtype == 1)
+    return ln_fwd_launch<__nv_bfloat16, true>(x, scale, nullptr, y, nullptr,
+                                              rstd, rows, d, eps, s);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t rt_rms_bwd(const void* x, const void* rstd, const void* scale,
+                       const void* dy, const void* dres, void* dx,
+                       void* dscale_part, int rows, int d, int dtype,
+                       void* stream) {
+  if (rows < 0 || d < 1 || d > kMaxD) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return ln_bwd_launch<float, true>(x, nullptr, rstd, scale, dy, dres, dx,
+                                      dscale_part, nullptr, rows, d, s);
+  if (dtype == 1)
+    return ln_bwd_launch<__nv_bfloat16, true>(x, nullptr, rstd, scale, dy,
+                                              dres, dx, dscale_part, nullptr,
+                                              rows, d, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,16 +1,17 @@
-"""Fused LayerNorm(+residual) and tanh-GELU, with hand-written CUDA kernels
-for the forward and the backward (``csrc/fused_norm.cu``).
+"""Fused LayerNorm(+residual), RMSNorm(+residual) and tanh-GELU, with
+hand-written CUDA kernels for the forward and the backward
+(``csrc/fused_norm.cu``).
 
-Port of ``ray_tpu/ops/fused_norm.py`` (LayerNorm and GELU; the RMSNorm
-kernels wait for the Llama slice). The design carries over: the LayerNorm
-forward saves only fp32 mean and rstd per row; one backward kernel computes
-dx, the dscale/dbias column partials and, in the ``_residual`` variant, adds
-the residual cotangent; the GELU backward recomputes tanh from the saved
-pre-activation.
+Port of ``ray_tpu/ops/fused_norm.py``. The design carries over: the
+LayerNorm forward saves only fp32 mean and rstd per row (RMSNorm: rstd
+only); one backward kernel computes dx, the dscale (and, for LayerNorm,
+dbias) column partials and, in the ``_residual`` variant, adds the residual
+cotangent; the GELU backward recomputes tanh from the saved pre-activation.
 
-Each kernel has a wrapper (``ln_fwd``, ``ln_bwd``, ``gelu_fwd``,
-``gelu_bwd``) and a plain PyTorch version of the same function
-(``ref_ln_fwd``, ``ref_ln_bwd``, ``ref_gelu``, ``ref_gelu_bwd``). A wrapper
+Each kernel has a wrapper (``ln_fwd``, ``ln_bwd``, ``rms_fwd``, ``rms_bwd``,
+``gelu_fwd``, ``gelu_bwd``) and a plain PyTorch version of the same function
+(``ref_ln_fwd``, ``ref_ln_bwd``, ``ref_rms_fwd``, ``ref_rms_bwd``,
+``ref_gelu``, ``ref_gelu_bwd``). A wrapper
 given CPU tensors computes the plain version; given CUDA tensors it
 launches the kernel or raises -- it never falls back. ``KERNEL_INVOCATIONS``
 counts real launches only.
@@ -32,6 +33,7 @@ import torch
 from ray_tpu_torch.ops._build import launch, load_library, on_cpu, stream
 
 LN_EPS = 1e-5  # matches models/gpt2.py _layer_norm
+RMS_EPS = 1e-6  # matches models/llama.py _rms_norm
 
 # Launches per kernel name, bumped by a wrapper only where it launches.
 KERNEL_INVOCATIONS: collections.Counter = collections.Counter()
@@ -49,6 +51,8 @@ _SIGNATURES = {
     "rt_ln_bwd_rows_per_block": [],
     "rt_ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "rt_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rt_rms_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "rt_rms_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rt_gelu_fwd": [_P, _P, _LL, _I, _P],
     "rt_gelu_bwd": [_P, _P, _P, _LL, _I, _P],
 }
@@ -95,6 +99,35 @@ def ref_layer_norm(x, scale, bias, eps: float = LN_EPS):
     """The model's ``_layer_norm`` chain over the last dim of ``x``:
     fp32 statistics, output in ``x.dtype``. Differentiable by autograd."""
     y, _, _ = ref_ln_fwd(x.reshape(-1, x.shape[-1]), scale, bias, eps)
+    return y.reshape(x.shape)
+
+
+def ref_rms_fwd(x2d, scale, eps: float = RMS_EPS):
+    """x2d [R, D] -> (y [R, D] in x2d.dtype, rstd [R] fp32), with
+    rstd = rsqrt(mean(x^2) + eps) and y = x * rstd * scale."""
+    x32 = x2d.float()
+    rstd = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (x32 * rstd * scale).to(x2d.dtype), rstd[:, 0]
+
+
+def ref_rms_bwd(x2d, rstd, scale, dy, dres=None):
+    """-> (dx [R, D] in x2d.dtype, dscale [D] fp32). No mean, so no c1 and
+    no dbias: dx = rstd * (dy*scale - xhat * mean(dy*scale*xhat)) (+ dres),
+    dscale = sum over rows of dy * xhat, with xhat = x * rstd."""
+    xhat = x2d.float() * rstd[:, None]
+    dy32 = dy.float()
+    dxhat = dy32 * scale
+    c2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = rstd[:, None] * (dxhat - xhat * c2)
+    if dres is not None:
+        dx = dx + dres.float()
+    return dx.to(x2d.dtype), (dy32 * xhat).sum(0)
+
+
+def ref_rms_norm(x, scale, eps: float = RMS_EPS):
+    """The model's ``_rms_norm`` chain over the last dim of ``x``: fp32
+    statistics, output in ``x.dtype``. Differentiable by autograd."""
+    y, _ = ref_rms_fwd(x.reshape(-1, x.shape[-1]), scale, eps)
     return y.reshape(x.shape)
 
 
@@ -199,6 +232,57 @@ def ln_bwd(x2d, mu, rstd, scale, dy, dres=None):
     return dx, dscale, dbias
 
 
+def rms_fwd(x2d, scale, eps: float = RMS_EPS):
+    """RMSNorm forward of rows ``x2d`` [R, D] -> (y, rstd [R] fp32).
+    ``scale`` is [D] fp32."""
+    if on_cpu(x2d):
+        return ref_rms_fwd(x2d, scale, eps)
+    code = _io_dtype("rms_fwd", x2d)
+    r, d = x2d.shape
+    lib = _lib()
+    _check_width("rms_fwd", d, lib)
+    dev = x2d.device
+    _check("rms_fwd x", x2d, device=dev, dtype=x2d.dtype, shape=(r, d))
+    _check("rms_fwd scale", scale, device=dev, dtype=torch.float32,
+           shape=(d,))
+    y = torch.empty_like(x2d)
+    rstd = torch.empty(r, device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        _launch("rms_fwd", lib.rt_rms_fwd, x2d.data_ptr(), scale.data_ptr(),
+                y.data_ptr(), rstd.data_ptr(), r, d, eps, code, stream(dev))
+    return y, rstd
+
+
+def rms_bwd(x2d, rstd, scale, dy, dres=None):
+    """RMSNorm backward -> (dx, dscale [D] fp32); ``dres`` (the residual
+    cotangent, or None) is added into dx. The kernel writes only dscale
+    partials, one [D] fp32 row per 16-row block, summed here."""
+    if on_cpu(x2d):
+        return ref_rms_bwd(x2d, rstd, scale, dy, dres)
+    code = _io_dtype("rms_bwd", x2d)
+    r, d = x2d.shape
+    lib = _lib()
+    _check_width("rms_bwd", d, lib)
+    dev = x2d.device
+    _check("rms_bwd x", x2d, device=dev, dtype=x2d.dtype, shape=(r, d))
+    _check("rms_bwd dy", dy, device=dev, dtype=x2d.dtype, shape=(r, d))
+    if dres is not None:
+        _check("rms_bwd dres", dres, device=dev, dtype=x2d.dtype,
+               shape=(r, d))
+    _check("rms_bwd rstd", rstd, device=dev, dtype=torch.float32, shape=(r,))
+    _check("rms_bwd scale", scale, device=dev, dtype=torch.float32,
+           shape=(d,))
+    n_blocks = -(-r // lib.rt_ln_bwd_rows_per_block())
+    dx = torch.empty_like(x2d)
+    parts = torch.empty(n_blocks, d, device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        _launch("rms_bwd", lib.rt_rms_bwd, x2d.data_ptr(), rstd.data_ptr(),
+                scale.data_ptr(), dy.data_ptr(),
+                None if dres is None else dres.data_ptr(), dx.data_ptr(),
+                parts.data_ptr(), r, d, code, stream(dev))
+    return dx, parts.sum(0)
+
+
 def gelu_fwd(x):
     """tanh-GELU of a contiguous tensor, elementwise, in ``x.dtype``."""
     if on_cpu(x):
@@ -250,6 +334,26 @@ class _LayerNorm(torch.autograd.Function):
         return dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None, None
 
 
+class _RMSNorm(torch.autograd.Function):
+    """The RMSNorm twin of ``_LayerNorm``: saves x and the fp32 rstd, and
+    with ``residual`` returns a view of x whose cotangent arrives as
+    ``dres``."""
+
+    @staticmethod
+    def forward(ctx, x2d, scale, eps, residual):
+        y, rstd = rms_fwd(x2d, scale, eps)
+        ctx.save_for_backward(x2d, scale, rstd)
+        return (y, x2d.view_as(x2d)) if residual else y
+
+    @staticmethod
+    def backward(ctx, dy, dres=None):
+        x2d, scale, rstd = ctx.saved_tensors
+        if dres is not None:
+            dres = dres.contiguous()
+        dx, dscale = rms_bwd(x2d, rstd, scale, dy.contiguous(), dres)
+        return dx, dscale.to(scale.dtype), None, None
+
+
 class _Gelu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
@@ -278,6 +382,22 @@ def fused_layer_norm_residual(x, scale, bias, *, eps: float = LN_EPS):
     its cotangent is summed into dx inside the one backward kernel."""
     y, x_skip = _LayerNorm.apply(
         x.reshape(-1, x.shape[-1]).contiguous(), scale, bias, eps, True)
+    return y.reshape(x.shape), x_skip.reshape(x.shape)
+
+
+def fused_rms_norm(x, scale, *, eps: float = RMS_EPS):
+    """RMSNorm over the last dim of ``x`` [..., D] (no mean, no bias);
+    fp32 rstd, output in ``x.dtype``."""
+    y = _RMSNorm.apply(x.reshape(-1, x.shape[-1]).contiguous(), scale, eps,
+                       False)
+    return y.reshape(x.shape)
+
+
+def fused_rms_norm_residual(x, scale, *, eps: float = RMS_EPS):
+    """(RMSNorm(x), x): feed the second output into the residual add --
+    its cotangent is summed into dx inside the one backward kernel."""
+    y, x_skip = _RMSNorm.apply(x.reshape(-1, x.shape[-1]).contiguous(),
+                               scale, eps, True)
     return y.reshape(x.shape), x_skip.reshape(x.shape)
 
 

@@ -1,8 +1,9 @@
-"""GPT-2 throughput-measurement harness (port of ``ray_tpu/scripts/measure.py``).
+"""Train-step throughput-measurement harness (port of
+``ray_tpu/scripts/measure.py``).
 
 One definition of the timed-step protocol (warmup, a device sync, timed
-steps, tok/s and MFU accounting) and the per-device peak table that MFU
-is taken against.
+steps, tok/s and MFU accounting), shared by ``measure_gpt2`` and
+``measure_llama``, and the per-device peak table that MFU is taken against.
 """
 
 from __future__ import annotations
@@ -33,6 +34,10 @@ FUSED_FLAGS = dict(remat="dots", scan_layers=False, use_flash=True,
                    fused_norm=True)
 # The same with dense attention (the first slice's path), kept beside it.
 FUSED_DENSE_FLAGS = dict(FUSED_FLAGS, use_flash=False)
+# The Llama train step's kernel path: flash attention and the RMSNorm
+# kernels under dots remat (LlamaConfig has no logits or CE options).
+LLAMA_FLAGS = dict(remat="dots", scan_layers=False, use_flash=True,
+                   fused_norm=True)
 
 
 def device_spec(device_name: str) -> dict[str, float]:
@@ -62,32 +67,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def measure_gpt2(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
-                 device=None) -> dict:  # step-timed
-    """Timed GPT-2 train-step loop -> measurement dict.
+def _measure(init_params, loss_fn, vocab_size: int, seq_len: int,
+             flops_per_token: float, batch: int, steps: int, warmup: int,
+             device: torch.device) -> dict:
+    """The timed-step protocol behind ``measure_gpt2`` and ``measure_llama``.
 
-    Initialises the state from seed 0 and a fixed batch from seed 1, runs
-    ``warmup`` steps, syncs the device (``.item()`` of the loss, then
-    ``torch.cuda.synchronize``), then times ``steps`` steps and syncs again.
+    Initialises the state from seed 0 (``init_params(generator)``) and a
+    fixed batch from seed 1, runs ``warmup`` steps, syncs the device
+    (``.item()`` of the loss, then ``torch.cuda.synchronize``), then times
+    ``steps`` steps and syncs again.
 
     Returns {tok_s, mfu, ms_step, loss, losses, dt, steps, warmup, batch,
     device}; ``losses`` holds every step's loss, warmup included, and
     ``mfu`` is taken against the device's dense bf16 peak.
     """
-    from ray_tpu_torch.models.gpt2 import (
-        gpt2_flops_per_token,
-        gpt2_init,
-        gpt2_loss,
-    )
     from ray_tpu_torch.train.train_step import make_init_fn, make_train_step
 
-    device = resolve_device(device)
     warmup = max(warmup, 1)  # >=1: the post-warmup sync reads metrics
-    init_fn = make_init_fn(lambda g: gpt2_init(g, cfg, device=device))
-    state = init_fn(torch.Generator(device=device).manual_seed(0))
-    step_fn = make_train_step(lambda p, b: gpt2_loss(p, b, cfg))
+    state = make_init_fn(init_params)(
+        torch.Generator(device=device).manual_seed(0))
+    step_fn = make_train_step(loss_fn)
     tokens = torch.randint(
-        0, cfg.vocab_size, (batch, cfg.seq_len + 1), device=device,
+        0, vocab_size, (batch, seq_len + 1), device=device,
         generator=torch.Generator(device=device).manual_seed(1))
     batch_data = {"tokens": tokens}
     losses = []
@@ -103,9 +104,9 @@ def measure_gpt2(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
     loss = metrics["loss"].item()
     _sync(device)
     dt = time.perf_counter() - t0
-    tok_s = batch * cfg.seq_len * steps / dt
+    tok_s = batch * seq_len * steps / dt
     name = device_name(device)
-    mfu = tok_s * gpt2_flops_per_token(cfg) / peak_flops_per_chip(name) * 100
+    mfu = tok_s * flops_per_token / peak_flops_per_chip(name) * 100
     return {
         "tok_s": tok_s,
         "mfu": mfu,
@@ -118,3 +119,36 @@ def measure_gpt2(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
         "batch": batch,
         "device": name,
     }
+
+
+def measure_gpt2(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
+                 device=None) -> dict:  # step-timed
+    """Timed GPT-2 train-step loop -> measurement dict (see ``_measure``)."""
+    from ray_tpu_torch.models.gpt2 import (
+        gpt2_flops_per_token,
+        gpt2_init,
+        gpt2_loss,
+    )
+
+    device = resolve_device(device)
+    return _measure(lambda g: gpt2_init(g, cfg, device=device),
+                    lambda p, b: gpt2_loss(p, b, cfg), cfg.vocab_size,
+                    cfg.seq_len, gpt2_flops_per_token(cfg), batch, steps,
+                    warmup, device)
+
+
+def measure_llama(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
+                  device=None) -> dict:  # step-timed
+    """Timed Llama train-step loop -> measurement dict (see ``_measure``);
+    MFU from ``llama_flops_per_token``."""
+    from ray_tpu_torch.models.llama import (
+        llama_flops_per_token,
+        llama_init,
+        llama_loss,
+    )
+
+    device = resolve_device(device)
+    return _measure(lambda g: llama_init(g, cfg, device=device),
+                    lambda p, b: llama_loss(p, b, cfg), cfg.vocab_size,
+                    cfg.seq_len, llama_flops_per_token(cfg), batch, steps,
+                    warmup, device)

@@ -1,20 +1,21 @@
-"""Where the GPT-2 train step's device time goes.
+"""Where a train step's device time goes.
 
-Profiles ``--steps`` train steps of a GPT-2 config on one GPU with
-``torch.profiler`` (after warmup steps and as many unprofiled, timed steps)
-and prints one JSON object: the step's wall time with and without the
-profiler, the summed device-kernel time and busy share, the time
-per kernel class (the port's flash and fused-norm kernels, matrix products,
-softmax, reductions, other elementwise, the rest), the top kernels by
-device time, and the top PyTorch operators by the device time of the
-kernels they launched themselves.
+Profiles ``--steps`` train steps of a GPT-2 or Llama config on one GPU
+with ``torch.profiler`` (after warmup steps and as many unprofiled, timed
+steps) and prints one JSON object: the step's wall time with and without
+the profiler, the summed device-kernel time and busy share, the time per
+kernel class (the port's flash, RMSNorm and other fused-norm kernels,
+matrix products, softmax, reductions, other elementwise, the rest), the top
+kernels by device time, and the top PyTorch operators by the device time of
+the kernels they launched themselves.
 
-    python -m ray_tpu_torch.scripts.profile_step [--config flash|dense]
-        [--batch 8] [--steps 2] [--out profile_step.json]
+    python -m ray_tpu_torch.scripts.profile_step [--config flash|dense|llama]
+        [--batch N] [--steps 2] [--out profile_step.json]
 
-The config is GPT-2 small with ``measure.FUSED_FLAGS`` (``flash``, the
-default: the main path ``chip_smoke.py`` drives) or
-``measure.FUSED_DENSE_FLAGS`` (``dense``). Needs a CUDA device.
+``flash`` (the default) is GPT-2 small with ``measure.FUSED_FLAGS``,
+``dense`` the same with ``measure.FUSED_DENSE_FLAGS`` (both batch 8 unless
+``--batch``); ``llama`` is ``LlamaConfig.small()`` with
+``measure.LLAMA_FLAGS`` (batch 4 unless ``--batch``). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 # Kernel classes by substring of the kernel name, first match wins.
 CLASSES = (
     ("flash", ("flash_fwd_kernel", "flash_dkv_kernel", "flash_dq_kernel")),
+    ("rms", ("rms_fwd_kernel", "rms_bwd_kernel")),
     ("fused_norm", ("ln_fwd_kernel", "ln_bwd_kernel", "gelu_fwd_kernel",
                     "gelu_bwd_kernel")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
@@ -47,18 +49,32 @@ def classify(name: str) -> str:
     return "other"
 
 
-def profile_step(batch: int = 8, steps: int = 2, warmup: int = 2,
+DEFAULT_BATCH = {"flash": 8, "dense": 8, "llama": 4}
+
+
+def _model(config: str):
+    """(cfg, init(generator, cfg, device=...), loss(params, batch, cfg))."""
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.scripts.measure import (FUSED_DENSE_FLAGS,
+                                               FUSED_FLAGS, LLAMA_FLAGS)
+
+    if config == "llama":
+        return (llama.LlamaConfig(**LLAMA_FLAGS), llama.llama_init,
+                llama.llama_loss)
+    flags = {"flash": FUSED_FLAGS, "dense": FUSED_DENSE_FLAGS}[config]
+    return gpt2.GPT2Config(**flags), gpt2.gpt2_init, gpt2.gpt2_loss
+
+
+def profile_step(batch: int | None = None, steps: int = 2, warmup: int = 2,
                  config: str = "flash") -> dict:
-    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init, gpt2_loss
-    from ray_tpu_torch.scripts.measure import FUSED_DENSE_FLAGS, FUSED_FLAGS
     from ray_tpu_torch.train.train_step import make_init_fn, make_train_step
 
     device = torch.device("cuda")
-    flags = {"flash": FUSED_FLAGS, "dense": FUSED_DENSE_FLAGS}[config]
-    cfg = GPT2Config(**flags)
-    state = make_init_fn(lambda g: gpt2_init(g, cfg, device=device))(
+    batch = batch or DEFAULT_BATCH[config]
+    cfg, init, loss = _model(config)
+    state = make_init_fn(lambda g: init(g, cfg, device=device))(
         torch.Generator(device=device).manual_seed(0))
-    step_fn = make_train_step(lambda p, b: gpt2_loss(p, b, cfg))
+    step_fn = make_train_step(lambda p, b: loss(p, b, cfg))
     tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.seq_len + 1),
                            device=device,
                            generator=torch.Generator(device=device).manual_seed(1))
@@ -90,7 +106,8 @@ def profile_step(batch: int = 8, steps: int = 2, warmup: int = 2,
     busy_us = sum(by_class.values())
     # Host-side operators only (kernel rows carry device time too). A
     # kernel launched through ctypes counts to the operator around it: the
-    # flash backward kernels to ``_FlashAttentionBackward``.
+    # flash backward kernels to ``_FlashAttentionBackward``, the RMSNorm
+    # backward to ``_RMSNormBackward``.
     ops = sorted((e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CPU
                   and e.self_device_time_total > 0),
@@ -119,8 +136,9 @@ def profile_step(batch: int = 8, steps: int = 2, warmup: int = 2,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("flash", "dense"), default="flash")
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--config", choices=tuple(DEFAULT_BATCH),
+                    default="flash")
+    ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()

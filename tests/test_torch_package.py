@@ -33,7 +33,9 @@ SLICE_MODULES = [
     "ray_tpu_torch.ops.flash_attention",
     "ray_tpu_torch.ops.fused_norm",
     "ray_tpu_torch.models",
+    "ray_tpu_torch.models._remat",
     "ray_tpu_torch.models.gpt2",
+    "ray_tpu_torch.models.llama",
     "ray_tpu_torch.models.convert",
     "ray_tpu_torch.train",
     "ray_tpu_torch.train.optim",
@@ -75,7 +77,8 @@ def _no_cuda(monkeypatch):
 def test_entry_points_raise_without_cuda(monkeypatch):
     from ray_tpu_torch.models.convert import params_from_numpy
     from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
-    from ray_tpu_torch.scripts.measure import measure_gpt2
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+    from ray_tpu_torch.scripts.measure import measure_gpt2, measure_llama
 
     _no_cuda(monkeypatch)
     cfg = GPT2Config.tiny()
@@ -87,6 +90,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         params_from_numpy({"w": [1.0]})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         measure_gpt2(cfg, 1, steps=1, warmup=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        llama_init(torch.Generator(), LlamaConfig.tiny())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        measure_llama(LlamaConfig.tiny(), 1, steps=1, warmup=1)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -182,6 +189,57 @@ def test_layer_norm_kernels_match_plain(cuda, dtype, rows, d):
                 assert float(torch.nn.functional.cosine_similarity(
                     a, b, dim=0)) > 0.9999
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(64, 1024), (37, 100), (16, 8192),
+                                    (37, 2050)])
+def test_rms_norm_kernels_match_plain(cuda, dtype, rows, d):
+    g = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
+    scale = 1 + 0.1 * torch.randn(d, device=cuda, generator=g)
+    dy = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
+    dres = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
+    before = dict(fn.KERNEL_INVOCATIONS)
+    y, rstd = fn.rms_fwd(x, scale)
+    y_ref, rstd_ref = fn.ref_rms_fwd(x, scale)
+    _check(y, y_ref, 1e-5)
+    _check(rstd, rstd_ref, 1e-5)
+    for res in (None, dres):
+        dx, dscale = fn.rms_bwd(x, rstd_ref, scale, dy, res)
+        dx_ref, dscale_ref = fn.ref_rms_bwd(x, rstd_ref, scale, dy, res)
+        _check(dx, dx_ref, 1e-4)
+        if dtype == torch.float32:
+            _check(dscale, dscale_ref, 1e-4)
+        else:
+            assert float(torch.nn.functional.cosine_similarity(
+                dscale, dscale_ref, dim=0)) > 0.9999
+    torch.cuda.synchronize()
+    assert fn.KERNEL_INVOCATIONS["rms_fwd"] == before.get("rms_fwd", 0) + 1
+    assert fn.KERNEL_INVOCATIONS["rms_bwd"] == before.get("rms_bwd", 0) + 2
+    assert fn.KERNEL_INVOCATIONS["ln_fwd"] == before.get("ln_fwd", 0)
+
+
+@pytest.mark.gpu
+def test_rms_autograd_through_kernels_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(4, 16, 1024, device=cuda, generator=g)
+    s = 1 + 0.1 * torch.randn(1024, device=cuda, generator=g)
+    w = torch.randn(1024, device=cuda, generator=g)
+    grads = []
+    for fused in (True, False):
+        xs, ss = (t.clone().requires_grad_(True) for t in (x, s))
+        if fused:
+            y, skip = fn.fused_rms_norm_residual(xs, ss)
+            y2 = fn.fused_rms_norm(y + skip, ss)
+        else:
+            y, skip = fn.ref_rms_norm(xs, ss), xs
+            y2 = fn.ref_rms_norm(y + skip, ss)
+        ((skip * 3.0 + y2 * w) ** 2).sum().backward()
+        grads.append((xs.grad, ss.grad))
+    for a, b_ in zip(*grads):
+        _check(a, b_, 1e-4)
 
 
 @pytest.mark.gpu
