@@ -33,12 +33,16 @@ that fails:
    every kernel launched exactly the expected number of times per step:
    - GPT-2 small (124M, seq 1024, batch 8) through ``measure_gpt2``, in
      ``bench.py``'s ``fused`` config with flash attention (the GPT-2 main
-     path: 2 warmup and 5 timed steps), then with dense attention (1
+     path: 2 warmup and 4 timed steps), then with dense attention (1
      warmup and 3 timed steps);
    - Llama small (246M, 16 layers, d 1024, 16 query and 4 KV heads, seq
      2048, batch 4) through ``measure_llama`` with ``LLAMA_FLAGS`` (flash
      attention, RMSNorm kernels, dots remat; the Llama main path: 2 warmup
-     and 5 timed steps);
+     and 4 timed steps);
+   six steps, because the GPT-2 run (AdamW at 3e-4 with no warmup, one
+   batch repeated) turns unstable at the seventh on every path, the
+   fully plain one included: its seventh loss lands anywhere from 9.9 to
+   11.8, above the first, depending on bf16 rounding alone;
 5. kernel path vs plain path, same weights and batch: GPT-2 (batch 4)
    flash + fused norms, and dense + fused norms, each against fully plain
    (dense attention, ``fused_norm=False``); Llama (batch 2) flash + RMSNorm
@@ -73,12 +77,16 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import shutil
-import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+from ray_tpu_torch.scripts.flash_bench import (cosine, device_ms,
+                                               flash_inputs, host_us,
+                                               warm_clocks)
 
 OUT = Path(__file__).resolve().parent / "chip_smoke_out"
 SOURCES = {"fused_norm": "ray_tpu_torch/ops/csrc/fused_norm.cu",
@@ -106,7 +114,7 @@ ROWS = BATCH * SEQ
 # Llama small (LlamaConfig.small()) at batch 4: 8192 tokens a step.
 L_BATCH, L_SEQ, L_D_MODEL, L_N_HEAD = 4, 2048, 1024, 16
 L_ROWS = L_BATCH * L_SEQ
-WARMUP, STEPS = 2, 5
+WARMUP, STEPS = 2, 4
 DENSE_WARMUP, DENSE_STEPS = 1, 3
 # Launches per train step of the fused config with remat="dots": two norms
 # per block plus the final one, one attention per block; the forward ones
@@ -122,9 +130,14 @@ EXPECTED_LLAMA = {"ln_fwd": 0, "ln_bwd": 0, "gelu_fwd": 0, "gelu_bwd": 0,
                   "rms_fwd": 65, "rms_bwd": 33, "flash_fwd": 32,
                   "flash_dkv": 16, "flash_dq": 16}
 # Flash check shapes (b, t, h, d, causal): the GPT-2-small one first.
+# Then the tile edges of the warp-specialised kernels (128-row fixed tiles,
+# 128- or 64-key and 64- or 16-row swept tiles), at B*H = 3.
+FLASH_EDGE_SEQS = (1, 63, 64, 65, 127, 128, 129, 2049)
 FLASH_CASES = [(BATCH, SEQ, N_HEAD, 64, True), (1, 77, 2, 64, True),
                (1, 1000, 2, 64, True), (1, 1000, 2, 128, True),
-               (1, 77, 2, 128, False), (1, 1000, 2, 64, False)]
+               (1, 77, 2, 128, False), (1, 1000, 2, 64, False)] + [
+    (1, t, 3, d, causal) for t in FLASH_EDGE_SEQS for d in (64, 128)
+    for causal in (True, False)]
 FLASH_LLAMA_CASE = (L_BATCH, L_SEQ, L_N_HEAD, 64, True)
 CROSSOVER_SEQS = (512, 1024, 2048)
 
@@ -139,36 +152,6 @@ def require(cond: bool, msg: str) -> None:
 
 
 # -- measurement helpers -------------------------------------------------------
-
-
-def warm_clocks(torch) -> None:
-    """Run the card at load for a moment so that the first timings do not
-    catch its clocks on the way up from idle."""
-    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
-    for _ in range(200):
-        a @ a
-    torch.cuda.synchronize()
-
-
-def device_ms(torch, fn, flush, n: int = 30) -> float:
-    """Median device time of ``fn`` over ``n`` launches (CUDA events). A
-    read of a buffer larger than the 50 MB L2 before each launch leaves the
-    cache cold but clean, so no write-back of other data is timed. A device
-    sleep queued first lets the host enqueue every launch before the device
-    reaches them."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    torch.cuda._sleep(50_000_000)
-    for s, e in zip(starts, ends):
-        flush.sum()
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
 def bf16_within_ulp(torch, got, want) -> bool:
@@ -188,11 +171,6 @@ def compare(torch, name, got, want, fp32_tol, failures) -> float:
     if not ok:
         failures.append(f"{name}: max abs err {err:.3e} ({got.dtype})")
     return err
-
-
-def cosine(torch, a, b) -> float:
-    a, b = a.double().flatten(), b.double().flatten()
-    return float(a @ b / (a.norm() * b.norm()))
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -230,7 +208,7 @@ def check_kernels(torch, fn, rows, d, dtype, failures, seed):
                                  failures))
             else:
                 e.append(float((a - b).abs().max()))
-                c = cosine(torch, a, b)
+                c = cosine(a, b)
                 if not c > 0.9999:
                     failures.append(f"ln_bwd {part} {case}: cosine {c}")
         errs["ln_bwd"] = max(errs["ln_bwd"], *e)
@@ -279,9 +257,9 @@ def time_kernels(torch, fn, inp, spec, flush):
                                                           approximate="tanh"),
                      3 * n * es, 20 * n),
     }
-    return {name: {"ms": device_ms(torch, kern, flush),
-                   "plain_ms": device_ms(torch, plain, flush),
-                   "library_ms": device_ms(torch, lib, flush),
+    return {name: {"ms": device_ms(kern, flush),
+                   "plain_ms": device_ms(plain, flush),
+                   "library_ms": device_ms(lib, flush),
                    **bound(nbytes, ops, spec, "fp32_flops")}
             for name, (kern, plain, lib, nbytes, ops) in cases.items()}
 
@@ -311,7 +289,7 @@ def check_rms(torch, fn, rows, d, dtype, failures, seed):
                              dscale_r, 1e-4, failures))
         else:
             e.append(float((dscale - dscale_r).abs().max()))
-            c = cosine(torch, dscale, dscale_r)
+            c = cosine(dscale, dscale_r)
             if not c > 0.9999:
                 failures.append(f"rms_bwd dscale {case}: cosine {c}")
         errs["rms_bwd"] = max(errs["rms_bwd"], *e)
@@ -345,9 +323,9 @@ def time_rms(torch, fn, inp, spec, flush):
                                                 retain_graph=True),
                     4 * rows * d * es + rows * 4 + 2 * d * 4, 10 * rows * d),
     }
-    return {name: {"ms": device_ms(torch, kern, flush),
-                   "plain_ms": device_ms(torch, plain, flush),
-                   "library_ms": device_ms(torch, lib, flush),
+    return {name: {"ms": device_ms(kern, flush),
+                   "plain_ms": device_ms(plain, flush),
+                   "library_ms": device_ms(lib, flush),
                    **bound(nbytes, ops, spec, "fp32_flops")}
             for name, (kern, plain, lib, nbytes, ops) in cases.items()}
 
@@ -362,25 +340,11 @@ def bound(nbytes, ops, spec, rate):
             "bytes": nbytes, "operations": ops}
 
 
-def flash_inputs(torch, b, t, h, d, seed, packed=True):
-    """q, k, v and a contiguous dO, from a seed: with ``packed`` q, k, v are
-    strided views of one [B, T, 3*H*D] bf16 tensor (GPT-2's layout), else
-    three contiguous [B, T, H, D] tensors (Llama's, after the GQA repeat)."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn(b, t, 3 * h * d, device="cuda",
-                      generator=g).to(torch.bfloat16)
-    q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
-    if not packed:
-        q, k, v = (x.contiguous() for x in (q, k, v))
-    do = torch.randn(b, t, h, d, device="cuda", generator=g).to(torch.bfloat16)
-    return q, k, v, do
-
-
 def check_flash(torch, fa, case, failures, seed, packed=True):
     """Each flash kernel against its plain version at one shape; returns
     (max abs error by kernel, inputs) for timing."""
     b, t, h, d, causal = case
-    q, k, v, do = flash_inputs(torch, b, t, h, d, seed, packed)
+    q, k, v, do = flash_inputs(b, t, h, d, seed, packed)
     kw = dict(softmax_scale=d ** -0.5, causal=causal)
     tag = f"[B={b} T={t} H={h} D={d} {'causal' if causal else 'full'}]"
     out, lse = fa.flash_fwd(q, k, v, **kw)
@@ -402,8 +366,15 @@ def check_flash(torch, fa, case, failures, seed, packed=True):
         errs[kname] = lse_err if kname == "flash_fwd" else 0.0
         for oname, got, want in pairs:
             err = float((got.float() - want.float()).abs().max())
-            cos = cosine(torch, got, want)
             errs[kname] = max(errs[kname], err)
+            if t == 1 and oname in ("dq", "dk"):
+                # One key: dS is 0 up to the rounding of dO.V - delta, so
+                # both versions are that noise; no cosine is defined.
+                if not err <= 2e-3:
+                    failures.append(f"{kname} {oname} {tag}: max abs err "
+                                    f"{err:.3e} > 2e-3")
+                continue
+            cos = cosine(got, want)
             if not cos > 0.9999:
                 failures.append(f"{kname} {oname} {tag}: cosine {cos:.6f}, "
                                 f"max abs err {err:.3e}")
@@ -414,8 +385,9 @@ def check_flash(torch, fa, case, failures, seed, packed=True):
 
 
 def time_flash(torch, fa, inp, spec, flush):
-    """{kernel: {ms, plain_ms, library_ms, bound_ms, bound_by, ...}} at the
-    inputs' shape. The yardstick is ``scaled_dot_product_attention``:
+    """{kernel: {ms, host_us, plain_ms, library_ms, bound_ms, bound_by,
+    ...}} at the inputs' shape; host_us is the wrapper's host cost per call
+    (``host_us``). The yardstick is ``scaled_dot_product_attention``:
     its forward for flash_fwd, its backward (dq, dk, dv and its own delta)
     for both flash_dkv and flash_dq."""
     F = torch.nn.functional
@@ -426,7 +398,7 @@ def time_flash(torch, fa, inp, spec, flush):
     leaves = [x.detach().requires_grad_(True) for x in (qh, kh, vh)]
     o_l = F.scaled_dot_product_attention(*leaves, is_causal=kw["causal"])
     do_h = do.transpose(1, 2)
-    sdpa_bwd = device_ms(torch, lambda: torch.autograd.grad(
+    sdpa_bwd = device_ms(lambda: torch.autograd.grad(
         o_l, leaves, do_h, retain_graph=True), flush)
     # The (q, k) pairs the causal mask keeps, or all of them.
     pairs = t * (t + 1) // 2 if kw["causal"] else t * t
@@ -445,9 +417,10 @@ def time_flash(torch, fa, inp, spec, flush):
                      None, 5 * act + 2 * stat, 6 * bh * pairs * d),
     }
     return {name: {
-        "ms": device_ms(torch, kern, flush),
-        "plain_ms": device_ms(torch, plain, flush),
-        "library_ms": device_ms(torch, lib, flush) if lib else sdpa_bwd,
+        "ms": device_ms(kern, flush),
+        "host_us": host_us(kern),
+        "plain_ms": device_ms(plain, flush),
+        "library_ms": device_ms(lib, flush) if lib else sdpa_bwd,
         "library": ("scaled_dot_product_attention forward" if lib else
                     "scaled_dot_product_attention backward (dq, dk, dv)"),
         **bound(nbytes, ops, spec, "bf16_flops")}
@@ -459,12 +432,12 @@ def time_crossover(torch, fa, dense, flush):
     at each of CROSSOVER_SEQS (B=8, H=12, D=64, bf16). Timing only."""
     rows = []
     for t in CROSSOVER_SEQS:
-        q, k, v, do = flash_inputs(torch, BATCH, t, N_HEAD, 64, t)
+        q, k, v, do = flash_inputs(BATCH, t, N_HEAD, 64, t)
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         row = {"seq": t}
         for name, fn in (("dense_ms", dense), ("flash_ms",
                                                 fa.flash_causal_attention)):
-            row[name] = device_ms(torch, lambda: torch.autograd.grad(
+            row[name] = device_ms(lambda: torch.autograd.grad(
                 fn(*leaves), leaves, do), flush, n=10)
         rows.append(row)
         print(f"attention fwd+bwd at T={t} (B*H=96, D=64, bf16): dense "
@@ -524,7 +497,7 @@ def compare_paths(torch, loss_fn, params, tokens, paths):
     loss_p, flat_p = out.pop("plain")
     report = {}
     for pname, (loss_k, flat_k) in out.items():
-        cos = cosine(torch, flat_k, flat_p)
+        cos = cosine(flat_k, flat_p)
         rel = abs(loss_k - loss_p) / abs(loss_p)
         report[pname] = {"loss_kernel": loss_k, "loss_plain": loss_p,
                          "loss_rel_diff": rel, "grad_cosine": cos}
@@ -532,6 +505,34 @@ def compare_paths(torch, loss_fn, params, tokens, paths):
               f"(rel {rel:.2e}), gradient cosine {cos:.6f}")
         require(rel <= 1e-2, f"{pname}: losses differ by {rel:.3e} (rtol 1e-2)")
         require(cos > 0.999, f"{pname}: gradient cosine {cos} <= 0.999")
+    return report
+
+
+def ptxas_report(log_text, fa):
+    """{kernel<D>: registers, spill bytes, static and dynamic shared memory
+    and ptxas's performance notes} for each flash kernel, read from the
+    ``-Xptxas -v`` log the build keeps; the dynamic shared memory is what
+    the launcher requests (ptxas sees only static shared memory)."""
+    pat = re.compile(r"(flash_(fwd|dkv|dq)_kernel)ILi(\d+)E")
+    report, cur = {}, None
+    for line in log_text.splitlines():
+        m = pat.search(line)
+        if "Compiling entry function" in line and m:
+            cur = f"{m.group(1)}<{m.group(3)}>"
+            report.setdefault(cur, {"notes": []})["dynamic_smem"] = (
+                fa.smem_bytes(f"flash_{m.group(2)}", int(m.group(3))))
+        elif m and re.search(r"\(C\d+\)", line):
+            name = f"{m.group(1)}<{m.group(3)}>"
+            code = re.search(r"\((C\d+)\)", line).group(1)
+            report.setdefault(name, {"notes": []})["notes"].append(code)
+        elif cur and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            report[cur].update(spill_stores=int(st), spill_loads=int(ld))
+        elif cur and "Used" in line and "registers" in line:
+            report[cur]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            report[cur]["static_smem"] = int(sm.group(1)) if sm else 0
     return report
 
 
@@ -580,11 +581,19 @@ def main() -> int:
     for lib in SOURCES:
         shutil.copy(_build.library_path(lib).with_suffix(".log"),
                     OUT / f"nvcc_{lib}.log")
+    report["ptxas"] = ptxas_report((OUT / "nvcc_flash_attention.log")
+                                   .read_text(), fa)
+    print("ptxas (registers, spill stores/loads B, static + dynamic shared "
+          "memory B, notes): " + "; ".join(
+              f"{k} {r.get('registers')}, {r.get('spill_stores')}/"
+              f"{r.get('spill_loads')}, {r.get('static_smem')} + "
+              f"{r.get('dynamic_smem')}, {','.join(r['notes']) or 'none'}"
+              for k, r in report["ptxas"].items()))
 
     # Phase 3: each kernel against its plain version.
     spec = device_spec(name)
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
-    warm_clocks(torch)
+    warm_clocks()
     failures = []
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -635,7 +644,9 @@ def main() -> int:
                 shape = llama_shape if k in RMS_KERNELS else gpt2_shape
             per_step = (EXPECTED_LLAMA if k in RMS_KERNELS or tag
                         else EXPECTED_PER_STEP)[k]
-            print(f"{k}{tag}: kernel_ms={r['ms']:.4f} "
+            host = (f"host_us={r['host_us']:.1f} " if k in FLASH_KERNELS
+                    else "")
+            print(f"{k}{tag}: kernel_ms={r['ms']:.4f} {host}"
                   f"plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']:.4f} "
                   f"bound_us={r['bound_ms'] * 1e3:.1f} ({r['bound_by']}) "
@@ -702,11 +713,12 @@ def main() -> int:
         }
         if kname in FLASH_KERNELS:
             entry["library"] = bf["library"]
+            entry["host_us"] = bf["host_us"]
             entry["llama"] = {
                 "launches": lstep["launches"][kname],
                 "launches_per_step": lstep["launches_per_step"][kname],
                 **{k: report["flash_llama_shape"][kname][k] for k in
-                   ("max_abs_err", "ms", "plain_ms", "library_ms",
+                   ("max_abs_err", "ms", "host_us", "plain_ms", "library_ms",
                     "bound_ms")}}
         else:
             f32 = results["float32"][kname]

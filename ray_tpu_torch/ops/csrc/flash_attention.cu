@@ -23,27 +23,28 @@
 //   dS rounded to bf16 before the products; dV += P^T dO, dK += dS^T Q,
 //   dQ += dS K, all accumulated in fp32.
 //
-// Design shared by the three kernels (the FlashAttention-2 structure). All
-// products go through the tensor cores as mma.sync m16n8k16 (bf16 in, fp32
-// accumulate); one warp owns 16 rows of the tile it keeps fixed, so every
-// row statistic stays in that warp's registers and no warp waits on another
-// except at the tile barriers. Tiles are staged in shared memory by cp.async
-// (16 bytes a thread, rows past T zero-filled) in two buffers, so the next
-// tile's loads run under the current tile's products. Shared rows are padded
-// by 16 bytes, which keeps the ldmatrix reads of 8 rows free of bank
-// conflicts. Causal tiles wholly in the future are never visited; only tiles
-// that straddle the diagonal, or run past T, pay for the mask.
+// Two designs. flash_fwd and flash_dkv are warp-specialised Hopper kernels
+// (below, "the warp-specialised kernels"): TMA loads under mbarriers, every
+// product a wgmma, one producer warp and two consumer warpgroups. flash_dq
+// keeps the FlashAttention-2 structure of the first port: mma.sync m16n8k16
+// products, one warp owning 16 rows of the fixed tile, cp.async double
+// buffering of padded shared rows (16 bytes of padding keep the ldmatrix
+// reads of 8 rows free of bank conflicts), 64-row tiles. In all three,
+// causal tiles wholly in the future are never visited, and only tiles that
+// straddle the diagonal, or run past T, pay for the mask.
 //
-// Bound on the H100 SXM at B=8, T=1024, H=12, D=64 (989 TFLOP/s bf16,
-// 3.35 TB/s): the forward is near the balance point (50.7 MB, 12.9 GFLOP
-// causal), the two backward kernels are bound by operations (25.8 and
-// 19.3 GFLOP). mma.sync reaches only part of the wgmma peak, so these
-// kernels aim first at keeping the tensor cores fed: two tiles in flight,
-// no [T, T] tensor in device memory, and each exp computed once per kernel.
+// Bound on the H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): at GPT-2 small's
+// shape (B=8, T=1024, H=12, D=64, causal) the forward is bound by bytes
+// (50.7 MB, 12.9 GFLOP) and the backward kernels by operations (25.8 and
+// 19.3 GFLOP); at Llama small's (B=4, T=2048, H=16, D=64) all three by
+// operations. No [T, T] tensor reaches device memory, and each
+// exponential is computed once per kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -52,17 +53,20 @@ typedef __nv_bfloat16 bf16;
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarpRows = 16;  // rows of the fixed tile one warp owns
 constexpr int kBlockFixed = kWarpRows * (kThreads / 32);  // 64
-constexpr int kBlockSweep = 64;  // rows of the swept tile (fwd and dq)
+constexpr int kBlockSweep = 64;  // rows of the swept tile (dq)
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInfL2 = kNegInf * kLog2e;  // the sentinel in log2 units
 
 // Shared-memory row stride, in elements: D plus 16 bytes of padding.
 template <int D>
 __host__ __device__ constexpr int row_stride() { return D + 8; }
 
-// Rows of the swept Q/dO tile in the dK/dV kernel. At D = 128 a 64-row tile
-// would need 32 more fp32 registers per thread than the launch bound leaves.
+// Rows of the swept Q/dO tile in the dK/dV kernel. A consumer thread holds
+// S^T and dP^T (BQ / 2 fp32 each) beside dK and dV (D / 2 each) under the
+// 168 registers ptxas allots it; at D = 128 dK and dV take 128 of them.
 template <int D>
-__host__ __device__ constexpr int dkv_block_q() { return D == 64 ? 64 : 32; }
+__host__ __device__ constexpr int dkv_block_q() { return D == 64 ? 64 : 16; }
 
 // -- PTX wrappers -------------------------------------------------------------
 
@@ -74,14 +78,6 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
@@ -221,18 +217,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-// ROWS fp32 values of one (b, h) row of lse or delta; zeros past T.
-template <int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int row0, int T) {
-  static_assert(ROWS <= kThreads, "one value per thread");
-  if (threadIdx.x < ROWS) {
-    const int t = row0 + threadIdx.x;
-    const bool live = t < T;
-    cp_async4(dst + threadIdx.x, src + (live ? t : 0), live ? 4 : 0);
-  }
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -288,129 +272,360 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][
   }
 }
 
+// -- the warp-specialised kernels (flash_fwd, flash_dkv) ------------------------
+//
+// One CTA of two consumer warpgroups (threads 0-255), which own 64 rows of
+// the CTA's 128-row fixed tile each and run every product as wgmma, and
+// one producer warp (threads 256-287), which streams the swept tiles into
+// a kStages ring of shared-memory buffers by TMA, behind full/empty
+// mbarriers. ptxas allots these kernels at most 168 registers a thread
+// (65536 / 384, as for three whole warpgroups), with a producer warpgroup
+// and setmaxnreg as with this single warp, so the tiles are sized to fit
+// 168 and the producer is one warp. Tiles are
+// stored as TMA writes them with the 128-byte swizzle: D/64 column blocks
+// of 128-byte rows, each block 1024-byte aligned, which is the layout
+// wgmma's descriptors read.
+
+constexpr int kWsThreads = 288;
+constexpr int kConsumerWarps = 8;
+constexpr int kTileRows = 128;      // fixed rows a CTA, 64 a consumer warpgroup
+constexpr int kStages = 3;
+constexpr uint32_t kSbo = 1024;     // 8 swizzled rows of 128 bytes
+
+// The first 1024-byte aligned address at or after p (swizzled TMA tiles).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = hopper::smem_u32(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+
+// K-major descriptor of k-step kk (16 columns) of a ROWS-row tile at base.
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int kk) {
+  return hopper::desc_sw128(base + (kk >> 2) * ROWS * 128 + (kk & 3) * 32, 16,
+                            kSbo);
+}
+
+// MN-major descriptor of rows 16kk..16kk+15 and column block hf of a
+// ROWS-row tile at base (the B operand of P.V, P^T.dO and dS^T.Q).
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int kk, int hf) {
+  return hopper::desc_sw128(base + hf * ROWS * 128 + kk * 16 * 128,
+                            ROWS * 128, kSbo);
+}
+
+// The A fragments of k-step kk of a C-fragment tile c (as wgmma writes it:
+// c[4 * nt + e] is row group (+8 for e >= 2), column 8 nt + 2 tig + (e & 1)),
+// rounded to bf16: C fragments of chunks 2kk and 2kk+1 are exactly the
+// mma.m16n8k16 A layout, so the tile never leaves registers.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[N],
+                                       int kk) {
+  const int n0 = 8 * kk, n1 = 8 * kk + 4;
+  a[0] = pack_bf16(c[n0], c[n0 + 1]);
+  a[1] = pack_bf16(c[n0 + 2], c[n0 + 3]);
+  a[2] = pack_bf16(c[n1], c[n1 + 1]);
+  a[3] = pack_bf16(c[n1 + 2], c[n1 + 3]);
+}
+
+// Writes a consumer warpgroup's 64 x D fp32 tile acc (acc[hf] holds column
+// block hf as C fragments) as bf16 rows of a contiguous [B, T, H, D]
+// tensor, row r of the thread's two scaled by mul[r]; rows past T skipped.
+template <int D>
+__device__ __forceinline__ void store_wg_rows(bf16* dst,
+                                              const float (&acc)[D / 64][32],
+                                              const float (&mul)[2], int b,
+                                              int h, int row_base, int H,
+                                              int T) {
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = row_base + r * 8;
+    if (t >= T) continue;
+    bf16* row = dst + bthd(b, h, t, H, T, D);
+#pragma unroll
+    for (int hf = 0; hf < D / 64; ++hf)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(row + hf * 64 + nt * 8 + tig * 2) =
+            __floats2bfloat162_rn(acc[hf][4 * nt + 2 * r] * mul[r],
+                                  acc[hf][4 * nt + 2 * r + 1] * mul[r]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // flash_fwd: replaces _fwd_kernel (ray_tpu/ops/flash_attention.py:84).
 //
-// One CTA per (b*h, 64-row q tile); a loop over the K/V tiles inside the CTA
-// takes the place of the TPU's sequential k grid axis. Each warp keeps its
-// 16 rows' running max, denominator (fp32) and the 16 x D fp32 accumulator
-// in registers across the loop, as m_scr/l_scr/acc_scr do in VMEM. Causal
-// q tiles run last-first, so the longest sweeps start first. Writes out in
-// bf16 and lse in fp32.
-// Bound at GPT-2 small's shape: bytes and operations about equal (~15 us).
+// One CTA per (b*h, 128-row q tile); a loop over BK-key K/V tiles inside
+// the CTA takes the place of the TPU's sequential k grid axis. Q loads once
+// by TMA; K and V stream through the ring. Each consumer warpgroup computes
+// S = Q K^T for its 64 rows (wgmma m64nBKk16, both operands in shared
+// memory), the online softmax in registers, and O += P V with P as the
+// register A operand and V read MN-major (wgmma m64n64k16 per 64 columns).
+// Each thread keeps its two rows' running max, denominator and fp32
+// accumulator across the loop, as m_scr/l_scr/acc_scr do in VMEM. Causal
+// q tiles run last-first, so the longest sweeps start first; tiles wholly
+// in the future are never visited.
+// Softmax: p = 2^(s * scale * log2 e - m * log2 e), one FFMA and one MUFU
+// ex2 a score, with m, l and lse kept in natural-log units. A masked score
+// gives p = 0 exactly, as exp(-1e30 - m) does for every m the sweep can
+// reach (key tile 0 holds key 0, which every row sees, so m leaves the
+// -1e30 floor on the first tile); the running max never drops below -1e30.
+// Bound at the Llama-small shape: operations (34.4 GFLOP causal, 35 us at
+// the bf16 peak), and the exponentials need about as long on the MUFU
+// units, so the design keeps both busy at once. Within a warpgroup, tile
+// j's S product is issued together with tile j-1's P V product, and the
+// softmax of tile j runs while P V is still on the tensor cores (P of
+// tile j-1 waits, packed, in registers). Across the two warpgroups, named
+// barriers hand the tensor cores back and forth (ping-pong), so one
+// warpgroup issues its products while the other does its softmax.
 // ---------------------------------------------------------------------------
+
+// Keys of flash_fwd's swept tile: at D = 128 the accumulator doubles, and a
+// 128-key S tile with P held beside it would not fit the 168 registers.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
-  constexpr int S = row_stride<D>();
-  constexpr int kTile = kBlockSweep * S;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + kBlockFixed * S;  // [2][64][S]
-  bf16* v_s = k_s + 2 * kTile;        // [2][64][S]
+__host__ __device__ constexpr int fwd_block_k() { return D == 64 ? 128 : 64; }
+
+// One online-softmax step on the S tile sc of this thread's two rows
+// (row_base, row_base + 8): masks it if `masked`, moves m past the tile's
+// max, turns sc into p, adds p's row sums to l, and returns in alpha the
+// factor by which the accumulator must be rescaled.
+template <int BK>
+__device__ __forceinline__ void softmax_step(float (&sc)[BK / 2], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             bool masked, int k0, int row_base,
+                                             const Args& a) {
+  const int tig = threadIdx.x & 3;
+  if (masked) {
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + nt * 8 + tig * 2 + (e & 1);
+        const int row = row_base + (e >> 1) * 8;
+        if (col >= a.T || (a.causal && col > row)) sc[4 * nt + e] = -INFINITY;
+      }
+  }
+  const float c = a.scale * kLog2e;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+      mx = fmaxf(mx, fmaxf(sc[4 * nt + 2 * r], sc[4 * nt + 2 * r + 1]));
+    // max(s * scale) == scale * max(s) for scale > 0; never below m.
+    const float m_new = fmaxf(m[r], quad_max(mx) * a.scale);
+    // Unfused products, so equal maxima give exactly ex2(0) = 1.
+    const float ml2 = __fmul_rn(m_new, kLog2e);
+    alpha[r] = hopper::ex2(__fmul_rn(m[r], kLog2e) - ml2);
+    float sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        sc[4 * nt + e] = hopper::ex2(fmaf(sc[4 * nt + e], c, -ml2));
+        sum += sc[4 * nt + e];
+      }
+    l[r] = l[r] * alpha[r] + quad_sum(sum);
+    m[r] = m_new;
+  }
+}
+
+// Ping-pong: warpgroup wg waits for its turn at the tensor cores on named
+// barrier 1 + wg, and hands the turn to the other on 2 - wg.
+__device__ __forceinline__ void turn_wait(int wg) {
+  hopper::bar_sync(1 + wg, 256);
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  hopper::bar_arrive(2 - wg, 256);
+}
+
+// Whether flash_fwd's key tile at k0 needs the mask for a warpgroup's rows
+// q0w .. q0w + 63: it straddles the diagonal or runs past T.
+template <int BK>
+__device__ __forceinline__ bool fwd_masked(const Args& a, int k0, int q0w) {
+  return (a.causal && k0 + BK - 1 > q0w) || k0 + BK > a.T;
+}
+
+// S = Q K^T for a warpgroup's 64 rows, as one commit group.
+template <int D, int BK>
+__device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint32_t q_addr,
+                                        uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::wgmma_ss<BK>(sc, desc_k<kTileRows>(q_addr, kk),
+                         desc_k<BK>(k_addr, kk), kk > 0);
+  hopper::wgmma_commit();
+}
+
+// O += P V with P from registers, as one commit group.
+template <int D, int BK>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 64][32],
+                                         const uint32_t (&pa)[BK / 16][4],
+                                         uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int hf = 0; hf < D / 64; ++hf)
+      hopper::wgmma_rs_n64_mn(acc[hf], pa[kk], desc_mn<BK>(v_addr, kk, hf));
+  hopper::wgmma_commit();
+}
+
+// Keeps the accumulator and the packed P in place around an in-flight
+// P V product (see hopper::fence_regs).
+template <int D, int BK>
+__device__ __forceinline__ void fence_tile(float (&acc)[D / 64][32],
+                                           uint32_t (&pa)[BK / 16][4]) {
+#pragma unroll
+  for (int hf = 0; hf < D / 64; ++hf) hopper::fence_regs(acc[hf]);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) hopper::fence_regs(pa[kk]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const Args a) {
+  constexpr int BK = fwd_block_k<D>();
+  constexpr int kQBytes = kTileRows * D * 2;
+  constexpr int kKBytes = BK * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  unsigned char* ring = smem + kQBytes;  // stage s: K, then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * 2 * kKBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_bar = empty + kStages;
 
   const int T = a.T, H = a.H;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int n_qt = (T + kBlockFixed - 1) / kBlockFixed;
+  const int n_qt = (T + kTileRows - 1) / kTileRows;
   const int qt = a.causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y;
-  const int q0 = qt * kBlockFixed;
-  const int n_kt_all = (T + kBlockSweep - 1) / kBlockSweep;
+  const int q0 = qt * kTileRows;
+  const int n_kt_all = (T + BK - 1) / BK;
   // Causal: k tiles up to the one holding the tile's last row.
-  const int n_kt = a.causal
-      ? min(n_kt_all, (q0 + kBlockFixed - 1) / kBlockSweep + 1)
-      : n_kt_all;
+  const int n_kt =
+      a.causal ? min(n_kt_all, (q0 + kTileRows - 1) / BK + 1) : n_kt_all;
 
-  const bf16* qp = a.q + (long long)b * a.sq_b + h * D;
-  const bf16* kp = a.k + (long long)b * a.sk_b + h * D;
-  const bf16* vp = a.v + (long long)b * a.sv_b + h * D;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = lane >> 2, tig = lane & 3;
-  const int row_base = q0 + warp * kWarpRows + group;  // + r * 8
-
-  load_tile<D, kBlockFixed>(q_s, qp, a.sq_t, q0, T);
-  load_tile<D, kBlockSweep>(k_s, kp, a.sk_t, 0, T);
-  load_tile<D, kBlockSweep>(v_s, vp, a.sv_t, 0, T);
-  cp_async_commit();
-
-  float acc[D / 8][4];
-  zero(acc);
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  for (int j = 0; j < n_kt; ++j) {
-    if (j + 1 < n_kt) {
-      const int buf = (j + 1) & 1;
-      load_tile<D, kBlockSweep>(k_s + buf * kTile, kp, a.sk_t,
-                                (j + 1) * kBlockSweep, T);
-      load_tile<D, kBlockSweep>(v_s + buf * kTile, vp, a.sv_t,
-                                (j + 1) * kBlockSweep, T);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumerWarps);
     }
-    __syncthreads();
-    const bf16* kc = k_s + (j & 1) * kTile;
-    const bf16* vc = v_s + (j & 1) * kTile;
+    hopper::mbar_init(q_bar, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
 
-    float s[kBlockSweep / 8][4];
-    zero(s);
-    mma_abt<D, kBlockSweep / 8>(s, q_s, warp * kWarpRows, kc);
-
-    const int k0 = j * kBlockSweep;
-    const bool masked = (a.causal && k0 + kBlockSweep - 1 > q0) ||
-                        k0 + kBlockSweep > T;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: one thread keeps the ring full.
+    if (threadIdx.x == 256) {
+      hopper::mbar_arrive_expect_tx(q_bar, kQBytes);
 #pragma unroll
-    for (int nt = 0; nt < kBlockSweep / 8; ++nt)
+      for (int c = 0; c < D / 64; ++c)
+        hopper::tma_load_4d(q_s + c * kTileRows * 64, &tm_q, q_bar, c * 64, h,
+                            q0, b);
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % kStages;
+        hopper::mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * kKBytes);
+        bf16* k_s = reinterpret_cast<bf16*>(ring + s * 2 * kKBytes);
+        bf16* v_s = k_s + BK * D;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * a.scale;
-        if (masked) {
-          const int col = k0 + nt * 8 + tig * 2 + (e & 1);
-          const int row = row_base + (e >> 1) * 8;
-          if (col >= T || (a.causal && col > row)) x = kNegInf;
+        for (int c = 0; c < D / 64; ++c) {
+          hopper::tma_load_4d(k_s + c * BK * 64, &tm_k, &full[s], c * 64, h,
+                              j * BK, b);
+          hopper::tma_load_4d(v_s + c * BK * 64, &tm_v, &full[s], c * 64, h,
+                              j * BK, b);
         }
-        s[nt][e] = x;
-      }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = m[r];
-#pragma unroll
-      for (int nt = 0; nt < kBlockSweep / 8; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      const float m_new = quad_max(mx);
-      const float alpha = expf(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kBlockSweep / 8; ++nt) {
-        s[nt][2 * r] = expf(s[nt][2 * r] - m_new);
-        s[nt][2 * r + 1] = expf(s[nt][2 * r + 1] - m_new);
-        sum += s[nt][2 * r] + s[nt][2 * r + 1];
-      }
-      l[r] = l[r] * alpha + quad_sum(sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        acc[nt][2 * r] *= alpha;
-        acc[nt][2 * r + 1] *= alpha;
       }
     }
-    mma_pb<D, kBlockSweep>(acc, s, vc);
-    __syncthreads();  // every warp is done with this buffer before reuse
-  }
+  } else {
+    // Consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63.
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int tig = lane & 3;
+    const int q0w = q0 + wg * 64;
+    const int row_base = q0w + warp * 16 + (lane >> 2);  // + r * 8
+    const uint32_t q_addr = hopper::smem_u32(q_s) + wg * 64 * 128;
+    const uint32_t ring_addr = hopper::smem_u32(ring);
 
-  float inv[2];
+    float acc[D / 64][32];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = fmaxf(l[r], 1e-30f);
-    inv[r] = 1.f / l[r];
-  }
-  store_rows<D>(a.out, acc, inv, b, h, q0 + warp * kWarpRows, H, T);
-  if (tig == 0) {
+    for (int hf = 0; hf < D / 64; ++hf)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[hf][i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+    float sc[BK / 2];
+    uint32_t pa[BK / 16][4];  // P of the previous tile, packed
+
+    if (wg == 1) turn_pass(wg);  // warpgroup 0 goes first
+    hopper::mbar_wait(q_bar, 0);
+    hopper::mbar_wait(&full[0], 0);
+    turn_wait(wg);
+    hopper::wgmma_fence();
+    issue_s<D, BK>(sc, q_addr, ring_addr);
+    turn_pass(wg);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    softmax_step<BK>(sc, m, l, alpha, fwd_masked<BK>(a, 0, q0w), 0, row_base,
+                     a);  // acc is still 0: nothing to rescale
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) pack_a(pa[kk], sc, kk);
+
+    for (int j = 1; j < n_kt; ++j) {
+      const int s = j % kStages, sp = (j - 1) % kStages;
+      hopper::mbar_wait(&full[s], (j / kStages) & 1);
+      turn_wait(wg);
+      fence_tile<D, BK>(acc, pa);
+      hopper::wgmma_fence();
+      issue_s<D, BK>(sc, q_addr, ring_addr + s * 2 * kKBytes);
+      issue_pv<D, BK>(acc, pa, ring_addr + sp * 2 * kKBytes + kKBytes);
+      turn_pass(wg);
+      hopper::wgmma_wait<1>();  // S of tile j; P V of tile j-1 runs on
+      hopper::fence_regs(sc);
+      softmax_step<BK>(sc, m, l, alpha, fwd_masked<BK>(a, j * BK, q0w),
+                       j * BK, row_base, a);
+      hopper::wgmma_wait<0>();
+      fence_tile<D, BK>(acc, pa);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[sp]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int hf = 0; hf < D / 64; ++hf)
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            acc[hf][4 * nt + 2 * r] *= alpha[r];
+            acc[hf][4 * nt + 2 * r + 1] *= alpha[r];
+          }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) pack_a(pa[kk], sc, kk);
+    }
+
+    // The last tile's P V.
+    turn_wait(wg);
+    fence_tile<D, BK>(acc, pa);
+    hopper::wgmma_fence();
+    issue_pv<D, BK>(acc, pa,
+                    ring_addr + ((n_kt - 1) % kStages) * 2 * kKBytes + kKBytes);
+    if (wg == 0) turn_pass(wg);  // warpgroup 1's last pass went first
+    hopper::wgmma_wait<0>();
+    fence_tile<D, BK>(acc, pa);
+
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int t = row_base + r * 8;
-      if (t < T) a.lse_out[(long long)bh * T + t] = m[r] + logf(l[r]);
+      l[r] = fmaxf(l[r], 1e-30f);
+      inv[r] = 1.f / l[r];
+    }
+    store_wg_rows<D>(a.out, acc, inv, b, h, row_base, H, T);
+    if (tig == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int t = row_base + r * 8;
+        if (t < T) a.lse_out[(long long)bh * T + t] = m[r] + logf(l[r]);
+      }
     }
   }
 }
@@ -419,105 +634,215 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 // flash_dkv: replaces _dkv_kernel (ray_tpu/ops/flash_attention.py:211) on
 // the JAX package's long-sequence path (no dQ partials).
 //
-// One CTA per (b*h, 64-row k tile); each warp owns 16 keys and computes the
-// transposed tiles S^T = K Q^T and dP^T = V dO^T for them, so P^T and dS^T
-// come out of the tensor cores as C fragments whose rows are the warp's keys
-// -- exactly the A operand of dV += P^T dO and dK += dS^T Q. P is recomputed
-// from the lse it is given (exp(s - lse)), so a caller may pass a global or
-// masking lse. dK and dV accumulate in fp32 registers across the q sweep and
-// are written once, in bf16. No dQ is computed here.
-// Bound at GPT-2 small's shape: operations (25.8 GFLOP causal, ~26 us).
+// One CTA per (b*h, 128 keys); K and V load once by TMA, and the producer
+// streams the q tiles (Q and dO by TMA; lse * log2 e and delta, which TMA
+// cannot take at an arbitrary T, by the producer warp's own loads) through
+// the ring. Each consumer warpgroup owns 64 keys and computes S^T = K Q^T
+// and dP^T = V dO^T (wgmma, both operands in shared memory), so P^T and
+// dS^T come out as C fragments whose rows are its keys -- exactly the
+// register A operand of dV += P^T dO and dK += dS^T Q, which read dO and Q
+// MN-major. P is recomputed from the lse it is given, p = 2^(s * scale *
+// log2 e - lse * log2 e), so a caller may pass a global or masking lse
+// (+1e30 gives p = 0); a masked score is the -1e30 sentinel, in log2
+// units. dK and dV accumulate in fp32 registers across the q sweep and are
+// written once, in bf16. Causal: the sweep starts at the first q tile that
+// reaches the CTA's keys, and CTAs with the most q tiles come first. No dQ
+// is computed here.
+// Bound at the Llama-small shape: operations (68.7 GFLOP causal, 70 us at
+// the bf16 peak). Registers set the tile: at D = 64 a consumer thread holds
+// S^T, dP^T, dK and dV (32 fp32 each) for a 64-row q tile; at D = 128 dK
+// and dV double, so the q tile is 16 rows. The two warpgroups ping-pong the
+// tensor cores, as in flash_fwd, so one's exponentials run under the
+// other's products; overlapping them inside a warpgroup would hold a
+// second tile's fragments, past the 168 registers.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
-  constexpr int S = row_stride<D>();
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_g, const Args a) {
   constexpr int BQ = dkv_block_q<D>();
-  constexpr int kTile = BQ * S;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + kBlockFixed * S;
-  bf16* q_s = v_s + kBlockFixed * S;  // [2][BQ][S]
-  bf16* g_s = q_s + 2 * kTile;        // [2][BQ][S]
-  float* lse_s = reinterpret_cast<float*>(g_s + 2 * kTile);  // [2][BQ]
-  float* dl_s = lse_s + 2 * BQ;                               // [2][BQ]
+  constexpr int kKVBytes = kTileRows * D * 2;
+  constexpr int kQBytes = BQ * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = k_s + kTileRows * D;
+  unsigned char* ring = smem + 2 * kKVBytes;  // stage s: Q, then dO
+  float* lse_s = reinterpret_cast<float*>(ring + kStages * 2 * kQBytes);
+  float* dl_s = lse_s + kStages * BQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(dl_s + kStages * BQ);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_bar = empty + kStages;
 
   const int T = a.T, H = a.H;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.y * kBlockFixed;  // causal: heaviest tiles first
+  const int k0 = blockIdx.y * kTileRows;  // causal: heaviest tiles first
   const int n_qt = (T + BQ - 1) / BQ;
   // Causal: the first q tile whose last row reaches k0.
   const int qt0 = a.causal ? k0 / BQ : 0;
 
-  const bf16* qp = a.q + (long long)b * a.sq_b + h * D;
-  const bf16* kp = a.k + (long long)b * a.sk_b + h * D;
-  const bf16* vp = a.v + (long long)b * a.sv_b + h * D;
-  const bf16* gp = a.g + (long long)b * a.sg_b + h * D;
-  const float* lsep = a.lse + (long long)bh * T;
-  const float* dlp = a.delta + (long long)bh * T;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = lane >> 2, tig = lane & 3;
-  const int key_base = k0 + warp * kWarpRows + group;  // + r * 8
-
-  load_tile<D, kBlockFixed>(k_s, kp, a.sk_t, k0, T);
-  load_tile<D, kBlockFixed>(v_s, vp, a.sv_t, k0, T);
-  load_tile<D, BQ>(q_s, qp, a.sq_t, qt0 * BQ, T);
-  load_tile<D, BQ>(g_s, gp, a.sg_t, qt0 * BQ, T);
-  load_rows<BQ>(lse_s, lsep, qt0 * BQ, T);
-  load_rows<BQ>(dl_s, dlp, qt0 * BQ, T);
-  cp_async_commit();
-
-  float dk[D / 8][4], dv[D / 8][4];
-  zero(dk);
-  zero(dv);
-
-  for (int i = qt0; i < n_qt; ++i) {
-    if (i + 1 < n_qt) {
-      const int buf = (i + 1 - qt0) & 1;
-      const int r0 = (i + 1) * BQ;
-      load_tile<D, BQ>(q_s + buf * kTile, qp, a.sq_t, r0, T);
-      load_tile<D, BQ>(g_s + buf * kTile, gp, a.sg_t, r0, T);
-      load_rows<BQ>(lse_s + buf * BQ, lsep, r0, T);
-      load_rows<BQ>(dl_s + buf * BQ, dlp, r0, T);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp's lanes
+      hopper::mbar_init(&empty[s], kConsumerWarps);
     }
-    __syncthreads();
-    const int cur = (i - qt0) & 1;
-    const bf16* qc = q_s + cur * kTile;
-    const bf16* gc = g_s + cur * kTile;
-    const float* lc = lse_s + cur * BQ;
-    const float* dc = dl_s + cur * BQ;
-
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-    zero(st);
-    zero(dpt);
-    mma_abt<D, BQ / 8>(st, k_s, warp * kWarpRows, qc);
-    mma_abt<D, BQ / 8>(dpt, v_s, warp * kWarpRows, gc);
-
-    const int q0 = i * BQ;
-    const bool masked = a.causal && k0 + kBlockFixed - 1 > q0;
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + tig * 2 + (e & 1);
-        float x = st[nt][e] * a.scale;
-        if (masked && key_base + (e >> 1) * 8 > q0 + qi) x = kNegInf;
-        const float p = expf(x - lc[qi]);
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - dc[qi]) * a.scale;
-      }
-    mma_pb<D, BQ>(dv, st, gc);
-    mma_pb<D, BQ>(dk, dpt, qc);
-    __syncthreads();  // every warp is done with this buffer before reuse
+    hopper::mbar_init(kv_bar, 1);
+    hopper::mbar_init_fence();
   }
+  __syncthreads();
 
-  const float one[2] = {1.f, 1.f};
-  store_rows<D>(a.out, dk, one, b, h, k0 + warp * kWarpRows, H, T);
-  store_rows<D>(a.out2, dv, one, b, h, k0 + warp * kWarpRows, H, T);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: warp 8 keeps the ring full.
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(kv_bar, 2 * kKVBytes);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        hopper::tma_load_4d(k_s + c * kTileRows * 64, &tm_k, kv_bar, c * 64,
+                            h, k0, b);
+        hopper::tma_load_4d(v_s + c * kTileRows * 64, &tm_v, kv_bar, c * 64,
+                            h, k0, b);
+      }
+    }
+    const float* lsep = a.lse + (long long)bh * T;
+    const float* dlp = a.delta + (long long)bh * T;
+    for (int i = qt0; i < n_qt; ++i) {
+      const int it = i - qt0, s = it % kStages;
+      hopper::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      // Rows past T: any finite value (their Q and dO rows are zeros).
+      for (int x = lane; x < BQ; x += 32) {
+        const int t = i * BQ + x;
+        lse_s[s * BQ + x] = t < T ? __fmul_rn(lsep[t], kLog2e) : 0.f;
+        dl_s[s * BQ + x] = t < T ? dlp[t] : 0.f;
+      }
+      if (lane == 0) {
+        // Arrives after this lane's own stores, as the others do.
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * kQBytes);
+        bf16* q_s = reinterpret_cast<bf16*>(ring + s * 2 * kQBytes);
+        bf16* g_s = q_s + BQ * D;
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          hopper::tma_load_4d(q_s + c * BQ * 64, &tm_q, &full[s], c * 64, h,
+                              i * BQ, b);
+          hopper::tma_load_4d(g_s + c * BQ * 64, &tm_g, &full[s], c * 64, h,
+                              i * BQ, b);
+        }
+      } else {
+        hopper::mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns keys k0 + 64 wg .. + 63.
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int group = lane >> 2, tig = lane & 3;
+    const int kw0 = k0 + wg * 64;
+    const int key_base = kw0 + warp * 16 + group;  // + r * 8
+    const uint32_t k_addr = hopper::smem_u32(k_s) + wg * 64 * 128;
+    const uint32_t v_addr = hopper::smem_u32(v_s) + wg * 64 * 128;
+    const uint32_t ring_addr = hopper::smem_u32(ring);
+    const float c = a.scale * kLog2e;
+
+    float dk[D / 64][32], dv[D / 64][32];
+#pragma unroll
+    for (int hf = 0; hf < D / 64; ++hf)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk[hf][i] = dv[hf][i] = 0.f;
+
+    if (wg == 1) turn_pass(wg);  // warpgroup 0 goes first
+    hopper::mbar_wait(kv_bar, 0);
+    for (int i = qt0; i < n_qt; ++i) {
+      const int it = i - qt0, s = it % kStages;
+      const int q0 = i * BQ;
+      const uint32_t q_addr = ring_addr + s * 2 * kQBytes;
+      const uint32_t g_addr = q_addr + kQBytes;
+      hopper::mbar_wait(&full[s], (it / kStages) & 1);
+      float st[BQ / 2], dpt[BQ / 2];
+      turn_wait(wg);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<BQ>(st, desc_k<kTileRows>(k_addr, kk),
+                             desc_k<BQ>(q_addr, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<BQ>(dpt, desc_k<kTileRows>(v_addr, kk),
+                             desc_k<BQ>(g_addr, kk), kk > 0);
+      hopper::wgmma_commit();
+      turn_pass(wg);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+
+      const bool masked = a.causal && kw0 + 63 > q0;
+      const float* lc = lse_s + s * BQ;
+      const float* dc = dl_s + s * BQ;
+#pragma unroll
+      for (int nt = 0; nt < BQ / 8; ++nt) {
+        const float2 ll =
+            *reinterpret_cast<const float2*>(lc + nt * 8 + tig * 2);
+        const float2 dd =
+            *reinterpret_cast<const float2*>(dc + nt * 8 + tig * 2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + nt * 8 + tig * 2 + (e & 1);
+          const float ll2 = (e & 1) ? ll.y : ll.x;
+          const float p = hopper::ex2(masked && key_base + (e >> 1) * 8 > qi
+                                          ? kNegInfL2 - ll2
+                                          : fmaf(st[4 * nt + e], c, -ll2));
+          st[4 * nt + e] = p;
+          dpt[4 * nt + e] =
+              p * (dpt[4 * nt + e] - ((e & 1) ? dd.y : dd.x)) * a.scale;
+        }
+      }
+
+      // Every A fragment is packed before the fence, so no wgmma waits on a
+      // register written between two of them.
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        pack_a(pa[kk], st, kk);
+        pack_a(da[kk], dpt, kk);
+      }
+      turn_wait(wg);
+#pragma unroll
+      for (int hf = 0; hf < D / 64; ++hf) {
+        hopper::fence_regs(dk[hf]);
+        hopper::fence_regs(dv[hf]);
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int hf = 0; hf < D / 64; ++hf) {
+          hopper::wgmma_rs_n64_mn(dv[hf], pa[kk], desc_mn<BQ>(g_addr, kk, hf));
+          hopper::wgmma_rs_n64_mn(dk[hf], da[kk], desc_mn<BQ>(q_addr, kk, hf));
+        }
+      hopper::wgmma_commit();
+      // Every turn is passed once: warpgroup 1 skips its last, which
+      // warpgroup 0's first wait took in advance.
+      if (wg == 0 || i + 1 < n_qt) turn_pass(wg);
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int hf = 0; hf < D / 64; ++hf) {
+        hopper::fence_regs(dk[hf]);
+        hopper::fence_regs(dv[hf]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        hopper::fence_regs(pa[kk]);
+        hopper::fence_regs(da[kk]);
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    const float one[2] = {1.f, 1.f};
+    store_wg_rows<D>(a.out, dk, one, b, h, key_base, H, T);
+    store_wg_rows<D>(a.out2, dv, one, b, h, key_base, H, T);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -624,15 +949,16 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 // -- launch -------------------------------------------------------------------
 
 template <int D>
-size_t fwd_smem() {
-  return (size_t)(kBlockFixed + 4 * kBlockSweep) * row_stride<D>() * sizeof(bf16);
+size_t fwd_smem() {  // alignment slack, Q, the K/V ring, the barriers
+  return 1024 + (size_t)(kTileRows + kStages * 2 * fwd_block_k<D>()) * D * 2 +
+         (2 * kStages + 1) * 8;
 }
 
 template <int D>
-size_t dkv_smem() {
+size_t dkv_smem() {  // slack, K, V, the Q/dO ring, lse and delta, barriers
   constexpr int BQ = dkv_block_q<D>();
-  return (size_t)(2 * kBlockFixed + 4 * BQ) * row_stride<D>() * sizeof(bf16) +
-         4 * BQ * sizeof(float);
+  return 1024 + (size_t)(2 * kTileRows + kStages * 2 * BQ) * D * 2 +
+         2 * kStages * BQ * 4 + (2 * kStages + 1) * 8;
 }
 
 template <int D>
@@ -649,6 +975,19 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const Args& a,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Launches a warp-specialised kernel with its tensor maps (by value, as
+// __grid_constant__ parameters) and the Args.
+template <typename Kernel, typename... Maps>
+cudaError_t launch_ws(Kernel kernel, dim3 grid, size_t smem,
+                      cudaStream_t stream, const Args& a,
+                      const Maps&... maps) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWsThreads, smem, stream>>>(maps..., a);
   return cudaGetLastError();
 }
 
@@ -705,10 +1044,19 @@ cudaError_t rt_flash_fwd(const void* q, const void* k, const void* v, void* o,
   const Args a = make_args(q, k, v, nullptr, nullptr, nullptr, o, nullptr, lse,
                            H, T, sq_b, sq_t, sk_b, sk_t, sv_b, sv_t, 0, 0,
                            scale, causal);
-  const dim3 grid(B * H, (T + kBlockFixed - 1) / kBlockFixed);
+  const int bk = D == 64 ? fwd_block_k<64>() : fwd_block_k<128>();
+  CUtensorMap tq, tk, tv;
+  if (!hopper::encode_bthd(&tq, q, B, T, H, D, sq_b, sq_t, kTileRows) ||
+      !hopper::encode_bthd(&tk, k, B, T, H, D, sk_b, sk_t, bk) ||
+      !hopper::encode_bthd(&tv, v, B, T, H, D, sv_b, sv_t, bk))
+    return cudaErrorInvalidValue;
+  const dim3 grid(B * H, (T + kTileRows - 1) / kTileRows);
   auto s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch(flash_fwd_kernel<64>, grid, fwd_smem<64>(), a, s);
-  return launch(flash_fwd_kernel<128>, grid, fwd_smem<128>(), a, s);
+  if (D == 64)
+    return launch_ws(flash_fwd_kernel<64>, grid, fwd_smem<64>(), s, a, tq, tk,
+                     tv);
+  return launch_ws(flash_fwd_kernel<128>, grid, fwd_smem<128>(), s, a, tq, tk,
+                   tv);
 }
 
 cudaError_t rt_flash_dkv(const void* q, const void* k, const void* v,
@@ -722,10 +1070,20 @@ cudaError_t rt_flash_dkv(const void* q, const void* k, const void* v,
   const Args a = make_args(q, k, v, g, lse, delta, dk, dv, nullptr, H, T, sq_b,
                            sq_t, sk_b, sk_t, sv_b, sv_t, sg_b, sg_t, scale,
                            causal);
-  const dim3 grid(B * H, (T + kBlockFixed - 1) / kBlockFixed);
+  const int bq = D == 64 ? dkv_block_q<64>() : dkv_block_q<128>();
+  CUtensorMap tq, tk, tv, tg;
+  if (!hopper::encode_bthd(&tq, q, B, T, H, D, sq_b, sq_t, bq) ||
+      !hopper::encode_bthd(&tk, k, B, T, H, D, sk_b, sk_t, kTileRows) ||
+      !hopper::encode_bthd(&tv, v, B, T, H, D, sv_b, sv_t, kTileRows) ||
+      !hopper::encode_bthd(&tg, g, B, T, H, D, sg_b, sg_t, bq))
+    return cudaErrorInvalidValue;
+  const dim3 grid(B * H, (T + kTileRows - 1) / kTileRows);
   auto s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch(flash_dkv_kernel<64>, grid, dkv_smem<64>(), a, s);
-  return launch(flash_dkv_kernel<128>, grid, dkv_smem<128>(), a, s);
+  if (D == 64)
+    return launch_ws(flash_dkv_kernel<64>, grid, dkv_smem<64>(), s, a, tq, tk,
+                     tv, tg);
+  return launch_ws(flash_dkv_kernel<128>, grid, dkv_smem<128>(), s, a, tq, tk,
+                   tv, tg);
 }
 
 cudaError_t rt_flash_dq(const void* q, const void* k, const void* v,
@@ -743,6 +1101,19 @@ cudaError_t rt_flash_dq(const void* q, const void* k, const void* v,
   auto s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch(flash_dq_kernel<64>, grid, dq_smem<64>(), a, s);
   return launch(flash_dq_kernel<128>, grid, dq_smem<128>(), a, s);
+}
+
+// The dynamic shared memory a launch requests: kernel 0 flash_fwd, 1
+// flash_dkv, 2 flash_dq; -1 for an unknown kernel or D.
+int rt_flash_smem(int kernel, int D) {
+  if (D != 64 && D != 128) return -1;
+  const bool d64 = D == 64;
+  switch (kernel) {
+    case 0: return (int)(d64 ? fwd_smem<64>() : fwd_smem<128>());
+    case 1: return (int)(d64 ? dkv_smem<64>() : dkv_smem<128>());
+    case 2: return (int)(d64 ? dq_smem<64>() : dq_smem<128>());
+  }
+  return -1;
 }
 
 }  // extern "C"

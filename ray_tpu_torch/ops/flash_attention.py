@@ -12,9 +12,9 @@ wrapper and a plain PyTorch version of the same function:
   tiles.
 
 The backward is the JAX package's long-sequence path (``_dkv_kernel``
-without dQ partials, then ``_dq_kernel``): the Hopper kernels use 64-row
-tiles, so at T = 1024 there are 16 k-blocks, far past the TPU's
-``_DQ_PARTIALS_MAX_KB``. ``delta = rowsum(dO * O)`` is one torch
+without dQ partials, then ``_dq_kernel``): the Hopper kernels sweep tiles
+of 16 to 128 rows, so at T = 1024 there are at least 8 k-blocks, past the
+TPU's ``_DQ_PARTIALS_MAX_KB``. ``delta = rowsum(dO * O)`` is one torch
 reduction outside the kernels, as the JAX package's einsum is outside
 Pallas.
 
@@ -61,7 +61,10 @@ _SIGNATURES = {
     # q, k, v, g, lse, delta, dq, B, H, T, D, 8 strides, scale, causal,
     # stream
     "rt_flash_dq": [_P] * 7 + [_I] * 4 + [_LL] * 8 + [_F, _I, _P],
+    # kernel (0 fwd, 1 dkv, 2 dq), D
+    "rt_flash_smem": [_I, _I],
 }
+_SMEM_KERNELS = ("flash_fwd", "flash_dkv", "flash_dq")
 
 
 @functools.cache
@@ -241,6 +244,13 @@ def flash_dq(q, k, v, g, lse, delta, *, softmax_scale: float, causal: bool):
     return dq
 
 
+def smem_bytes(kernel: str, d: int) -> int:
+    """The dynamic shared memory a launch of ``kernel`` (``flash_fwd``,
+    ``flash_dkv`` or ``flash_dq``) requests at head_dim ``d``, for reports
+    beside ptxas's register counts."""
+    return _lib().rt_flash_smem(_SMEM_KERNELS.index(kernel), d)
+
+
 # -- autograd wiring -------------------------------------------------------
 
 
@@ -276,7 +286,7 @@ def flash_causal_attention(q, k, v, *, softmax_scale: float | None = None,
 
     ``block_q`` and ``block_k`` are the JAX package's TPU VMEM tile sizes;
     they are accepted for the same signature and ignored: the CUDA kernels
-    fix their own 64-row tiles and mask any ragged tail, so every T runs."""
+    fix their own tiles and mask any ragged tail, so every T runs."""
     del block_q, block_k
     d = q.shape[-1]
     scale = softmax_scale if softmax_scale is not None else d ** -0.5

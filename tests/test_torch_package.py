@@ -41,6 +41,7 @@ SLICE_MODULES = [
     "ray_tpu_torch.train.optim",
     "ray_tpu_torch.train.train_step",
     "ray_tpu_torch.scripts",
+    "ray_tpu_torch.scripts.flash_bench",
     "ray_tpu_torch.scripts.measure",
     "ray_tpu_torch.scripts.profile_step",
 ]
@@ -354,3 +355,72 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                     dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError, match="packed"):
         fa.flash_fwd(z, z, z, softmax_scale=1.0, causal=True)
+
+
+# Tile edges of the warp-specialised kernels: 128-row fixed tiles, 128-key
+# (forward) and 64- or 32-row (dK/dV) swept tiles, TMA's zero fill past T.
+EDGE_SEQS = (1, 63, 64, 65, 127, 128, 129, 2049)
+
+
+def _edge_inputs(cuda, t, d):
+    """B*H = 3 as (3, 1) at odd T and (1, 3) at even T, so both the batch
+    and the head stride of the strided views are exercised."""
+    b, h = (3, 1) if t % 2 else (1, 3)
+    return _flash_inputs(cuda, b, t, h, d, 1000 + t + d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t", EDGE_SEQS)
+def test_flash_fwd_and_dkv_at_tile_edges(cuda, t, d, causal):
+    q, k, v, do = _edge_inputs(cuda, t, d)
+    assert not q.is_contiguous()
+    kw = dict(softmax_scale=d ** -0.5, causal=causal)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    out_r, lse_r = fa.ref_flash_fwd(q, k, v, **kw)
+    assert float((lse - lse_r).abs().max()) <= 1e-4 * max(
+        1.0, float(lse_r.abs().max()))
+    _close_bf16(out, out_r)
+    delta = fa.flash_delta(out_r, do)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_r, delta, **kw)
+    dk_r, dv_r = fa.ref_flash_dkv(q, k, v, do, lse_r, delta, **kw)
+    if t == 1:
+        # One key: the softmax is constant, dS is 0 up to the rounding of
+        # dO.V - delta, and both dK are that rounding noise.
+        assert float(dk.float().abs().max()) <= 1e-3
+        assert float(dk_r.float().abs().max()) <= 1e-3
+    else:
+        _close_bf16(dk, dk_r)
+    _close_bf16(dv, dv_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_dkv_takes_shifted_and_masking_lse(cuda, d):
+    q, k, v, do = _edge_inputs(cuda, 129, d)
+    kw = dict(softmax_scale=d ** -0.5, causal=True)
+    out_r, lse_r = fa.ref_flash_fwd(q, k, v, **kw)
+    delta = fa.flash_delta(out_r, do)
+    shifted = lse_r + 0.5  # P scaled by exp(-0.5), as a global lse gives
+    dk, dv = fa.flash_dkv(q, k, v, do, shifted, delta, **kw)
+    dk_r, dv_r = fa.ref_flash_dkv(q, k, v, do, shifted, delta, **kw)
+    _close_bf16(dk, dk_r)
+    _close_bf16(dv, dv_r)
+    masking = torch.full_like(lse_r, 1e30)  # ring attention's masked step
+    dk, dv = fa.flash_dkv(q, k, v, do, masking, delta, **kw)
+    assert bool((dk == 0).all()) and bool((dv == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_and_dkv_are_deterministic(cuda, d):
+    q, k, v, do = _edge_inputs(cuda, 1000, d)
+    kw = dict(softmax_scale=d ** -0.5, causal=True)
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_fwd(q, k, v, **kw)
+        delta = fa.flash_delta(out, do)
+        runs.append((out, lse, *fa.flash_dkv(q, k, v, do, lse, delta, **kw)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
