@@ -18,7 +18,10 @@ that fails:
    - the RMSNorm kernels at the Llama-small shape (R = 4 x 2048 rows,
      D = 1024) in bf16 and fp32; yardstick ``F.rms_norm`` and its autograd
      backward;
-   - all six norm kernels at odd widths that exercise the masked tails;
+   - all six norm kernels at odd widths that exercise the masked tails,
+     and the RMSNorm kernels at the widths around ``rms_fwd``'s one-warp
+     limit (1024: at it; 1025 and 1032: just past it, unaligned and
+     aligned) and at D = 1 and 31;
    - the flash kernels at the GPT-2-small shape (B=8, T=1024, H=12, D=64,
      bf16, causal, q/k/v strided views of one [B, T, 3*768] tensor, as the
      model passes them), at the Llama-small shape (B=4, T=2048, H=16,
@@ -84,9 +87,9 @@ import sys
 import time
 from pathlib import Path
 
-from ray_tpu_torch.scripts.flash_bench import (cosine, device_ms,
-                                               flash_inputs, host_us,
-                                               warm_clocks)
+from ray_tpu_torch.scripts.flash_bench import (bf16_within_ulp, cosine,
+                                               device_ms, flash_inputs,
+                                               host_us, warm_clocks)
 
 OUT = Path(__file__).resolve().parent / "chip_smoke_out"
 SOURCES = {"fused_norm": "ray_tpu_torch/ops/csrc/fused_norm.cu",
@@ -130,8 +133,9 @@ EXPECTED_LLAMA = {"ln_fwd": 0, "ln_bwd": 0, "gelu_fwd": 0, "gelu_bwd": 0,
                   "rms_fwd": 65, "rms_bwd": 33, "flash_fwd": 32,
                   "flash_dkv": 16, "flash_dq": 16}
 # Flash check shapes (b, t, h, d, causal): the GPT-2-small one first.
-# Then the tile edges of the warp-specialised kernels (128-row fixed tiles,
-# 128- or 64-key and 64- or 16-row swept tiles), at B*H = 3.
+# Then the tile edges of the warp-specialised kernels (128-row fixed tiles;
+# swept tiles of 128 or 64 keys in flash_fwd, 64 or 16 q rows in flash_dkv,
+# 64 keys in flash_dq), at B*H = 3.
 FLASH_EDGE_SEQS = (1, 63, 64, 65, 127, 128, 129, 2049)
 FLASH_CASES = [(BATCH, SEQ, N_HEAD, 64, True), (1, 77, 2, 64, True),
                (1, 1000, 2, 64, True), (1, 1000, 2, 128, True),
@@ -139,6 +143,11 @@ FLASH_CASES = [(BATCH, SEQ, N_HEAD, 64, True), (1, 77, 2, 64, True),
     (1, t, 3, d, causal) for t in FLASH_EDGE_SEQS for d in (64, 128)
     for causal in (True, False)]
 FLASH_LLAMA_CASE = (L_BATCH, L_SEQ, L_N_HEAD, 64, True)
+# (rows, d) of the norm checks at odd widths, all six kernels; then the
+# RMSNorm kernels alone around rms_fwd's one-warp rows (up to 1024 wide),
+# with 37 rows, not a multiple of the 8 rows of its CTA.
+NORM_ODD_WIDTHS = ((37, 100), (64, 8192), (37, 2050))
+RMS_WARP_WIDTHS = ((37, 1), (37, 31), (37, 1024), (37, 1025), (37, 1032))
 CROSSOVER_SEQS = (512, 1024, 2048)
 
 
@@ -154,18 +163,11 @@ def require(cond: bool, msg: str) -> None:
 # -- measurement helpers -------------------------------------------------------
 
 
-def bf16_within_ulp(torch, got, want) -> bool:
-    got, want = got.float(), want.float()
-    mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return bool(((got - want).abs() <= ulp + 1e-5).all())
-
-
 def compare(torch, name, got, want, fp32_tol, failures) -> float:
     """Check one output against the plain version; returns max abs error."""
     err = float((got.float() - want.float()).abs().max())
     if got.dtype == torch.bfloat16:
-        ok = bf16_within_ulp(torch, got, want)
+        ok = bf16_within_ulp(got, want)
     else:
         ok = err <= fp32_tol * max(1.0, float(want.abs().max()))
     if not ok:
@@ -608,9 +610,12 @@ def main() -> int:
         results[key].update({k: {"max_abs_err": errs[k], **times[k]}
                              for k in RMS_KERNELS})
         del inp
-    for rows, d in ((37, 100), (64, 8192), (37, 2050)):
+    for rows, d in NORM_ODD_WIDTHS:
         for dtype in (torch.bfloat16, torch.float32):
             check_kernels(torch, fn, rows, d, dtype, failures, rows + d)
+            check_rms(torch, fn, rows, d, dtype, failures, rows + d + 1)
+    for rows, d in RMS_WARP_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
             check_rms(torch, fn, rows, d, dtype, failures, rows + d + 1)
     errs, inp = check_flash(torch, fa, FLASH_CASES[0], failures, 0)
     times = time_flash(torch, fa, inp, spec, flush)

@@ -23,15 +23,12 @@
 //   dS rounded to bf16 before the products; dV += P^T dO, dK += dS^T Q,
 //   dQ += dS K, all accumulated in fp32.
 //
-// Two designs. flash_fwd and flash_dkv are warp-specialised Hopper kernels
-// (below, "the warp-specialised kernels"): TMA loads under mbarriers, every
-// product a wgmma, one producer warp and two consumer warpgroups. flash_dq
-// keeps the FlashAttention-2 structure of the first port: mma.sync m16n8k16
-// products, one warp owning 16 rows of the fixed tile, cp.async double
-// buffering of padded shared rows (16 bytes of padding keep the ldmatrix
-// reads of 8 rows free of bank conflicts), 64-row tiles. In all three,
-// causal tiles wholly in the future are never visited, and only tiles that
-// straddle the diagonal, or run past T, pay for the mask.
+// One design for all three: warp-specialised Hopper kernels (below), with
+// TMA loads under mbarriers, every product a wgmma, one producer warp and
+// two consumer warpgroups that hand the tensor cores back and forth. Every
+// exponential is one FFMA and one MUFU ex2, with log2 e folded into the
+// scale. Causal tiles wholly in the future are never computed, and only
+// tiles that straddle the diagonal, or run past T, pay for the mask.
 //
 // Bound on the H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): at GPT-2 small's
 // shape (B=8, T=1024, H=12, D=64, causal) the forward is bound by bytes
@@ -50,17 +47,9 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kWarpRows = 16;  // rows of the fixed tile one warp owns
-constexpr int kBlockFixed = kWarpRows * (kThreads / 32);  // 64
-constexpr int kBlockSweep = 64;  // rows of the swept tile (dq)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInfL2 = kNegInf * kLog2e;  // the sentinel in log2 units
-
-// Shared-memory row stride, in elements: D plus 16 bytes of padding.
-template <int D>
-__host__ __device__ constexpr int row_stride() { return D + 8; }
 
 // Rows of the swept Q/dO tile in the dK/dV kernel. A consumer thread holds
 // S^T and dP^T (BQ / 2 fp32 each) beside dK and dV (D / 2 each) under the
@@ -68,153 +57,11 @@ __host__ __device__ constexpr int row_stride() { return D + 8; }
 template <int D>
 __host__ __device__ constexpr int dkv_block_q() { return D == 64 ? 64 : 16; }
 
-// -- PTX wrappers -------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; src_bytes = 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// c[16x8] += a[16x16] * b[16x8], bf16 operands, fp32 accumulator.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two fp32 values rounded to nearest-even bf16 (as torch's cast), the first
 // in the low half: the order of a fragment register.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// -- warp-level tile products -------------------------------------------------
-//
-// Fragment layouts of mma.m16n8k16 (lane = 4 * group + tig): A holds rows
-// group and group + 8, columns 2*tig (+1) and 8 + 2*tig (+1); B holds
-// k = 2*tig (+1) and 8 + 2*tig (+1) at n = group; C holds rows group and
-// group + 8 at columns 2*tig (+1).
-
-// acc[NT][.] += A . B^T over k in [0, D): A is the 16 rows at a_row0 of the
-// row-major tile a, B^T the NT*8 rows of the row-major tile b (so B is read
-// as [n][k], which ldmatrix without .trans gives).
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const bf16* a,
-                                        int a_row0, const bf16* b) {
-  constexpr int S = row_stride<D>();
-  const int lane = threadIdx.x & 31;
-  const int a_r = a_row0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int a_c = (lane >> 4) * 8;
-  const int b_r = (lane & 7) + (lane >> 4) * 8;
-  const int b_c = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, a + a_r * S + a_c + kk * 16);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (np * 16 + b_r) * S + b_c + kk * 16);
-      mma16816(acc[2 * np], af, bf[0], bf[1]);
-      mma16816(acc[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[D/8][.] += P . B: P is a 16 x KN tile held as C fragments (rounded to
-// bf16 here), B the row-major [KN][D] tile b (read as [k][n], which
-// ldmatrix .trans gives). The C fragments of P are its A fragments once
-// packed, so P never leaves registers.
-template <int D, int KN>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4],
-                                       const float (&p)[KN / 8][4],
-                                       const bf16* b) {
-  constexpr int S = row_stride<D>();
-  const int lane = threadIdx.x & 31;
-  const int b_r = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int b_c = (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < KN / 16; ++kk) {
-    uint32_t af[4];
-    af[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    af[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    af[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    af[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t bf[4];
-      ldsm_x4_trans(bf, b + (kk * 16 + b_r) * S + np * 16 + b_c);
-      mma16816(acc[2 * np], af, bf[0], bf[1]);
-      mma16816(acc[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int i = 0; i < NT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-}
-
-// -- tile loads ---------------------------------------------------------------
-
-// ROWS rows of D bf16 from src (row r at src + (row0 + r) * stride) into the
-// padded shared tile dst; rows at or past T are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long stride, int row0, int T) {
-  constexpr int S = row_stride<D>();
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  static_assert((ROWS * kChunks) % kThreads == 0, "tile not evenly split");
-#pragma unroll
-  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
-    const int idx = i * kThreads + threadIdx.x;
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const int t = row0 + r;
-    const bool live = t < T;
-    cp_async16(dst + r * S + c, src + (live ? (long long)t * stride : 0) + c,
-               live ? 16 : 0);
-  }
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -227,18 +74,14 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// What a kernel reads besides its tensor maps (the strided q, k, v, dO).
 struct Args {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* g;       // dO (backward)
-  const float* lse;    // [B, H, T]
+  const float* lse;    // [B, H, T] (backward)
   const float* delta;  // [B, H, T] (backward)
   bf16* out;           // o, dq, or dk
   bf16* out2;          // dv
   float* lse_out;      // forward
   int H, T;
-  long long sq_b, sq_t, sk_b, sk_t, sv_b, sv_t, sg_b, sg_t;
   float scale;
   int causal;
 };
@@ -249,30 +92,7 @@ __device__ __forceinline__ long long bthd(int b, int h, int t, int H, int T,
   return (((long long)b * T + t) * H + h) * D;
 }
 
-// Writes the 16 x D C-fragment tile acc (rows row0 + group, + 8) as bf16
-// rows of a contiguous [B, T, H, D] tensor, multiplied by mul[0|1] per row;
-// rows at or past T are skipped.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4],
-                                           const float (&mul)[2], int b, int h,
-                                           int row0, int H, int T) {
-  const int lane = threadIdx.x & 31;
-  const int group = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int t = row0 + group + r * 8;
-    if (t >= T) continue;
-    bf16* row = dst + bthd(b, h, t, H, T, D);
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      *reinterpret_cast<__nv_bfloat162*>(row + nt * 8 + tig * 2) =
-          __floats2bfloat162_rn(acc[nt][2 * r] * mul[r],
-                                acc[nt][2 * r + 1] * mul[r]);
-    }
-  }
-}
-
-// -- the warp-specialised kernels (flash_fwd, flash_dkv) ------------------------
+// -- the warp-specialised kernels --------------------------------------------
 //
 // One CTA of two consumer warpgroups (threads 0-255), which own 64 rows of
 // the CTA's 128-row fixed tile each and run every product as wgmma, and
@@ -439,10 +259,11 @@ __device__ __forceinline__ void turn_pass(int wg) {
   hopper::bar_arrive(2 - wg, 256);
 }
 
-// Whether flash_fwd's key tile at k0 needs the mask for a warpgroup's rows
-// q0w .. q0w + 63: it straddles the diagonal or runs past T.
+// Whether a BK-key tile at k0 needs the mask for a warpgroup's rows
+// q0w .. q0w + 63 (flash_fwd, flash_dq): it straddles the diagonal or runs
+// past T.
 template <int BK>
-__device__ __forceinline__ bool fwd_masked(const Args& a, int k0, int q0w) {
+__device__ __forceinline__ bool tile_masked(const Args& a, int k0, int q0w) {
   return (a.causal && k0 + BK - 1 > q0w) || k0 + BK > a.T;
 }
 
@@ -568,7 +389,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     turn_pass(wg);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
-    softmax_step<BK>(sc, m, l, alpha, fwd_masked<BK>(a, 0, q0w), 0, row_base,
+    softmax_step<BK>(sc, m, l, alpha, tile_masked<BK>(a, 0, q0w), 0, row_base,
                      a);  // acc is still 0: nothing to rescale
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) pack_a(pa[kk], sc, kk);
@@ -584,7 +405,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       turn_pass(wg);
       hopper::wgmma_wait<1>();  // S of tile j; P V of tile j-1 runs on
       hopper::fence_regs(sc);
-      softmax_step<BK>(sc, m, l, alpha, fwd_masked<BK>(a, j * BK, q0w),
+      softmax_step<BK>(sc, m, l, alpha, tile_masked<BK>(a, j * BK, q0w),
                        j * BK, row_base, a);
       hopper::wgmma_wait<0>();
       fence_tile<D, BK>(acc, pa);
@@ -848,102 +669,230 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 // ---------------------------------------------------------------------------
 // flash_dq: replaces _dq_kernel (ray_tpu/ops/flash_attention.py:269).
 //
-// One CTA per (b*h, 64-row q tile), sweeping the k tiles as the forward
-// does; each warp keeps its 16 rows' lse and delta and the 16 x D fp32 dQ
-// accumulator in registers. Each q row is owned by one warp, so dQ needs no
-// atomics and is the same on every run. Causal q tiles run last-first.
-// Bound at GPT-2 small's shape: operations (19.3 GFLOP causal, ~20 us).
+// flash_fwd's shape with the online softmax replaced by the known lse and
+// delta. One CTA per (b*h, 128-row q tile); Q and dO load once by TMA, and
+// the producer streams BK-key K/V tiles through the ring. Each consumer
+// warpgroup owns 64 q rows, keeps its two rows' lse * log2 e and delta in
+// registers (the rows are fixed, so no ring slot holds them), and for each
+// key tile computes S = Q K^T and dP = dO V^T (wgmma, both operands in
+// shared memory, one commit group), then p = 2^(s * scale * log2 e -
+// lse * log2 e) and dS = p * (dP - delta) * scale in registers, then
+// dQ += dS K with dS as the register A operand and K read MN-major (the
+// forward's P V with K in place of V). A masked score is the -1e30
+// sentinel in log2 units, so a global or masking lse (+1e30 gives p = 0)
+// may be passed, as ring attention does. dQ accumulates in fp32 registers
+// and is written once, in bf16; each q row belongs to one warpgroup, so no
+// atomics, and the result is the same on every run. Causal q tiles run
+// last-first, so the longest sweeps start first.
+// Bound at the Llama-small shape: operations (51.5 GFLOP causal, 52 us at
+// the bf16 peak). Registers set the key tile: a consumer thread holds S
+// and dP (32 fp32 each for 64 keys), the packed dS (16) and dQ (D / 2)
+// under the 168 registers ptxas allots; at D = 128 that is 144 live values,
+// which still fit without spill or serialised wgmma. The two warpgroups
+// ping-pong the tensor cores, as in flash_dkv, so one's exponentials run
+// under the other's products.
 // ---------------------------------------------------------------------------
+
+constexpr int kDqKeys = 64;  // keys of flash_dq's swept tile
+
+// dS = p * (dP - delta) * scale in place of dp, p = 2^(s * scale * log2 e -
+// lse * log2 e), for this thread's two rows (row_base, + 8) of a BK-key
+// tile at k0. MASK (the tile straddles the diagonal or runs past T): each
+// score is checked, and a masked one is the sentinel. Only such tiles take
+// that instantiation: a check made in every tile cost a third of the
+// kernel's time.
+template <int BK, bool MASK>
+__device__ __forceinline__ void ds_tile(float (&dp)[BK / 2],
+                                        const float (&sc)[BK / 2],
+                                        const float (&lse2)[2],
+                                        const float (&dl)[2], int k0,
+                                        int row_base, const Args& a) {
+  const int tig = threadIdx.x & 3;
+  const float c = a.scale * kLog2e;
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float x = fmaf(sc[4 * nt + e], c, -lse2[r]);
+      if constexpr (MASK) {
+        const int col = k0 + nt * 8 + tig * 2 + (e & 1);
+        if (col >= a.T || (a.causal && col > row_base + r * 8))
+          x = kNegInfL2 - lse2[r];
+      }
+      const float p = hopper::ex2(x);
+      dp[4 * nt + e] = p * (dp[4 * nt + e] - dl[r]) * a.scale;
+    }
+}
+
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
-  constexpr int S = row_stride<D>();
-  constexpr int kTile = kBlockSweep * S;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* g_s = q_s + kBlockFixed * S;
-  bf16* k_s = g_s + kBlockFixed * S;  // [2][64][S]
-  bf16* v_s = k_s + 2 * kTile;        // [2][64][S]
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_g, const Args a) {
+  constexpr int BK = kDqKeys;
+  constexpr int kQBytes = kTileRows * D * 2;
+  constexpr int kKBytes = BK * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* g_s = q_s + kTileRows * D;
+  unsigned char* ring = smem + 2 * kQBytes;  // stage s: K, then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * 2 * kKBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* qg_bar = empty + kStages;
 
   const int T = a.T, H = a.H;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int n_qt = (T + kBlockFixed - 1) / kBlockFixed;
+  const int n_qt = (T + kTileRows - 1) / kTileRows;
   const int qt = a.causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y;
-  const int q0 = qt * kBlockFixed;
-  const int n_kt_all = (T + kBlockSweep - 1) / kBlockSweep;
-  const int n_kt = a.causal
-      ? min(n_kt_all, (q0 + kBlockFixed - 1) / kBlockSweep + 1)
-      : n_kt_all;
+  const int q0 = qt * kTileRows;
+  const int n_kt_all = (T + BK - 1) / BK;
+  // Causal: k tiles up to the one holding the tile's last row.
+  const int n_kt =
+      a.causal ? min(n_kt_all, (q0 + kTileRows - 1) / BK + 1) : n_kt_all;
 
-  const bf16* qp = a.q + (long long)b * a.sq_b + h * D;
-  const bf16* kp = a.k + (long long)b * a.sk_b + h * D;
-  const bf16* vp = a.v + (long long)b * a.sv_b + h * D;
-  const bf16* gp = a.g + (long long)b * a.sg_b + h * D;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = lane >> 2, tig = lane & 3;
-  const int row_base = q0 + warp * kWarpRows + group;  // + r * 8
-
-  load_tile<D, kBlockFixed>(q_s, qp, a.sq_t, q0, T);
-  load_tile<D, kBlockFixed>(g_s, gp, a.sg_t, q0, T);
-  load_tile<D, kBlockSweep>(k_s, kp, a.sk_t, 0, T);
-  load_tile<D, kBlockSweep>(v_s, vp, a.sv_t, 0, T);
-  cp_async_commit();
-
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int t = row_base + r * 8;
-    lse_r[r] = t < T ? a.lse[(long long)bh * T + t] : 0.f;
-    dl_r[r] = t < T ? a.delta[(long long)bh * T + t] : 0.f;
-  }
-
-  float dq[D / 8][4];
-  zero(dq);
-
-  for (int j = 0; j < n_kt; ++j) {
-    if (j + 1 < n_kt) {
-      const int buf = (j + 1) & 1;
-      load_tile<D, kBlockSweep>(k_s + buf * kTile, kp, a.sk_t,
-                                (j + 1) * kBlockSweep, T);
-      load_tile<D, kBlockSweep>(v_s + buf * kTile, vp, a.sv_t,
-                                (j + 1) * kBlockSweep, T);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumerWarps);
     }
-    __syncthreads();
-    const bf16* kc = k_s + (j & 1) * kTile;
-    const bf16* vc = v_s + (j & 1) * kTile;
-
-    float s[kBlockSweep / 8][4], dp[kBlockSweep / 8][4];
-    zero(s);
-    zero(dp);
-    mma_abt<D, kBlockSweep / 8>(s, q_s, warp * kWarpRows, kc);
-    mma_abt<D, kBlockSweep / 8>(dp, g_s, warp * kWarpRows, vc);
-
-    const int k0 = j * kBlockSweep;
-    const bool masked = (a.causal && k0 + kBlockSweep - 1 > q0) ||
-                        k0 + kBlockSweep > T;
-#pragma unroll
-    for (int nt = 0; nt < kBlockSweep / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float x = s[nt][e] * a.scale;
-        if (masked) {
-          const int col = k0 + nt * 8 + tig * 2 + (e & 1);
-          if (col >= T || (a.causal && col > row_base + r * 8)) x = kNegInf;
-        }
-        const float p = expf(x - lse_r[r]);
-        s[nt][e] = p * (dp[nt][e] - dl_r[r]) * a.scale;  // dS
-      }
-    mma_pb<D, kBlockSweep>(dq, s, kc);
-    __syncthreads();  // every warp is done with this buffer before reuse
+    hopper::mbar_init(qg_bar, 1);
+    hopper::mbar_init_fence();
   }
+  __syncthreads();
 
-  const float one[2] = {1.f, 1.f};
-  store_rows<D>(a.out, dq, one, b, h, q0 + warp * kWarpRows, H, T);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: one thread keeps the ring full.
+    if (threadIdx.x == 256) {
+      hopper::mbar_arrive_expect_tx(qg_bar, 2 * kQBytes);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        hopper::tma_load_4d(q_s + c * kTileRows * 64, &tm_q, qg_bar, c * 64, h,
+                            q0, b);
+        hopper::tma_load_4d(g_s + c * kTileRows * 64, &tm_g, qg_bar, c * 64, h,
+                            q0, b);
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % kStages;
+        hopper::mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * kKBytes);
+        bf16* k_s = reinterpret_cast<bf16*>(ring + s * 2 * kKBytes);
+        bf16* v_s = k_s + BK * D;
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          hopper::tma_load_4d(k_s + c * BK * 64, &tm_k, &full[s], c * 64, h,
+                              j * BK, b);
+          hopper::tma_load_4d(v_s + c * BK * 64, &tm_v, &full[s], c * 64, h,
+                              j * BK, b);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63.
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int q0w = q0 + wg * 64;
+    const int row_base = q0w + warp * 16 + (lane >> 2);  // + r * 8
+    const uint32_t q_addr = hopper::smem_u32(q_s) + wg * 64 * 128;
+    const uint32_t g_addr = hopper::smem_u32(g_s) + wg * 64 * 128;
+    const uint32_t ring_addr = hopper::smem_u32(ring);
+    // Causal: warpgroup 0 computes the tiles up to its own last row; the
+    // CTA's n_kt is warpgroup 1's.
+    const int n_kt_w =
+        a.causal ? min(n_kt_all, (q0w + 63) / BK + 1) : n_kt_all;
+
+    // Rows past T: any finite value (their Q and dO rows are zeros).
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = row_base + r * 8;
+      const long long i = (long long)bh * T + t;
+      lse2[r] = t < T ? __fmul_rn(a.lse[i], kLog2e) : 0.f;
+      dl[r] = t < T ? a.delta[i] : 0.f;
+    }
+
+    float dq[D / 64][32];
+#pragma unroll
+    for (int hf = 0; hf < D / 64; ++hf)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq[hf][i] = 0.f;
+
+    if (wg == 1) turn_pass(wg);  // warpgroup 0 goes first
+    hopper::mbar_wait(qg_bar, 0);
+    for (int j = 0; j < n_kt_w; ++j) {
+      const int s = j % kStages;
+      const uint32_t k_addr = ring_addr + s * 2 * kKBytes;
+      const uint32_t v_addr = k_addr + kKBytes;
+      hopper::mbar_wait(&full[s], (j / kStages) & 1);
+      float sc[BK / 2], dp[BK / 2];
+      turn_wait(wg);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<BK>(sc, desc_k<kTileRows>(q_addr, kk),
+                             desc_k<BK>(k_addr, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<BK>(dp, desc_k<kTileRows>(g_addr, kk),
+                             desc_k<BK>(v_addr, kk), kk > 0);
+      hopper::wgmma_commit();
+      turn_pass(wg);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+
+      const int k0 = j * BK;
+      if (tile_masked<BK>(a, k0, q0w))
+        ds_tile<BK, true>(dp, sc, lse2, dl, k0, row_base, a);
+      else
+        ds_tile<BK, false>(dp, sc, lse2, dl, k0, row_base, a);
+
+      // Every A fragment is packed before the fence, so no wgmma waits on a
+      // register written between two of them.
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) pack_a(da[kk], dp, kk);
+      turn_wait(wg);
+#pragma unroll
+      for (int hf = 0; hf < D / 64; ++hf) hopper::fence_regs(dq[hf]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int hf = 0; hf < D / 64; ++hf)
+          hopper::wgmma_rs_n64_mn(dq[hf], da[kk], desc_mn<BK>(k_addr, kk, hf));
+      hopper::wgmma_commit();
+      // Every turn is passed once: warpgroup 1 skips its last, which
+      // warpgroup 0's first wait took in advance.
+      if (wg == 0 || j + 1 < n_kt) turn_pass(wg);
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int hf = 0; hf < D / 64; ++hf) hopper::fence_regs(dq[hf]);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) hopper::fence_regs(da[kk]);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+    // Causal, warpgroup 0 only: the tiles wholly in its rows' future. No
+    // products, but both turns of each tile pass, so the two warpgroups
+    // pass the same count, and each stage is released once it has landed
+    // (an early arrival would count toward the stage's previous use).
+    for (int j = n_kt_w; j < n_kt; ++j) {
+      const int s = j % kStages;
+      hopper::mbar_wait(&full[s], (j / kStages) & 1);
+      turn_wait(wg);
+      turn_pass(wg);
+      turn_wait(wg);
+      turn_pass(wg);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    const float one[2] = {1.f, 1.f};
+    store_wg_rows<D>(a.out, dq, one, b, h, row_base, H, T);
+  }
 }
 
 // -- launch -------------------------------------------------------------------
@@ -962,24 +911,14 @@ size_t dkv_smem() {  // slack, K, V, the Q/dO ring, lse and delta, barriers
 }
 
 template <int D>
-size_t dq_smem() {
-  return (size_t)(2 * kBlockFixed + 4 * kBlockSweep) * row_stride<D>() *
-         sizeof(bf16);
-}
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const Args& a,
-                   cudaStream_t stream) {
-  // Above 48 KB a kernel's dynamic shared memory has to be allowed first.
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+size_t dq_smem() {  // slack, Q, dO, the K/V ring, the barriers
+  return 1024 + (size_t)(2 * kTileRows + kStages * 2 * kDqKeys) * D * 2 +
+         (2 * kStages + 1) * 8;
 }
 
 // Launches a warp-specialised kernel with its tensor maps (by value, as
-// __grid_constant__ parameters) and the Args.
+// __grid_constant__ parameters) and the Args. Above 48 KB a kernel's
+// dynamic shared memory has to be allowed first.
 template <typename Kernel, typename... Maps>
 cudaError_t launch_ws(Kernel kernel, dim3 grid, size_t smem,
                       cudaStream_t stream, const Args& a,
@@ -996,16 +935,9 @@ bool valid(int B, int H, int T, int D) {
          (long long)B * H <= 0x7fffffffLL && (T + 31) / 32 <= 65535;
 }
 
-Args make_args(const void* q, const void* k, const void* v, const void* g,
-               const void* lse, const void* delta, void* out, void* out2,
-               void* lse_out, int H, int T, long long sq_b, long long sq_t,
-               long long sk_b, long long sk_t, long long sv_b, long long sv_t,
-               long long sg_b, long long sg_t, float scale, int causal) {
+Args make_args(const void* lse, const void* delta, void* out, void* out2,
+               void* lse_out, int H, int T, float scale, int causal) {
   Args a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.g = static_cast<const bf16*>(g);
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.out = static_cast<bf16*>(out);
@@ -1013,14 +945,6 @@ Args make_args(const void* q, const void* k, const void* v, const void* g,
   a.lse_out = static_cast<float*>(lse_out);
   a.H = H;
   a.T = T;
-  a.sq_b = sq_b;
-  a.sq_t = sq_t;
-  a.sk_b = sk_b;
-  a.sk_t = sk_t;
-  a.sv_b = sv_b;
-  a.sv_t = sv_t;
-  a.sg_b = sg_b;
-  a.sg_t = sg_t;
   a.scale = scale;
   a.causal = causal != 0;
   return a;
@@ -1041,9 +965,8 @@ cudaError_t rt_flash_fwd(const void* q, const void* k, const void* v, void* o,
                          long long sv_b, long long sv_t, float scale,
                          int causal, void* stream) {
   if (!valid(B, H, T, D)) return cudaErrorInvalidValue;
-  const Args a = make_args(q, k, v, nullptr, nullptr, nullptr, o, nullptr, lse,
-                           H, T, sq_b, sq_t, sk_b, sk_t, sv_b, sv_t, 0, 0,
-                           scale, causal);
+  const Args a = make_args(nullptr, nullptr, o, nullptr, lse, H, T, scale,
+                           causal);
   const int bk = D == 64 ? fwd_block_k<64>() : fwd_block_k<128>();
   CUtensorMap tq, tk, tv;
   if (!hopper::encode_bthd(&tq, q, B, T, H, D, sq_b, sq_t, kTileRows) ||
@@ -1067,9 +990,7 @@ cudaError_t rt_flash_dkv(const void* q, const void* k, const void* v,
                          long long sg_b, long long sg_t, float scale,
                          int causal, void* stream) {
   if (!valid(B, H, T, D)) return cudaErrorInvalidValue;
-  const Args a = make_args(q, k, v, g, lse, delta, dk, dv, nullptr, H, T, sq_b,
-                           sq_t, sk_b, sk_t, sv_b, sv_t, sg_b, sg_t, scale,
-                           causal);
+  const Args a = make_args(lse, delta, dk, dv, nullptr, H, T, scale, causal);
   const int bq = D == 64 ? dkv_block_q<64>() : dkv_block_q<128>();
   CUtensorMap tq, tk, tv, tg;
   if (!hopper::encode_bthd(&tq, q, B, T, H, D, sq_b, sq_t, bq) ||
@@ -1094,13 +1015,21 @@ cudaError_t rt_flash_dq(const void* q, const void* k, const void* v,
                         long long sg_t, float scale, int causal,
                         void* stream) {
   if (!valid(B, H, T, D)) return cudaErrorInvalidValue;
-  const Args a = make_args(q, k, v, g, lse, delta, dq, nullptr, nullptr, H, T,
-                           sq_b, sq_t, sk_b, sk_t, sv_b, sv_t, sg_b, sg_t,
-                           scale, causal);
-  const dim3 grid(B * H, (T + kBlockFixed - 1) / kBlockFixed);
+  const Args a = make_args(lse, delta, dq, nullptr, nullptr, H, T, scale,
+                           causal);
+  CUtensorMap tq, tk, tv, tg;
+  if (!hopper::encode_bthd(&tq, q, B, T, H, D, sq_b, sq_t, kTileRows) ||
+      !hopper::encode_bthd(&tk, k, B, T, H, D, sk_b, sk_t, kDqKeys) ||
+      !hopper::encode_bthd(&tv, v, B, T, H, D, sv_b, sv_t, kDqKeys) ||
+      !hopper::encode_bthd(&tg, g, B, T, H, D, sg_b, sg_t, kTileRows))
+    return cudaErrorInvalidValue;
+  const dim3 grid(B * H, (T + kTileRows - 1) / kTileRows);
   auto s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch(flash_dq_kernel<64>, grid, dq_smem<64>(), a, s);
-  return launch(flash_dq_kernel<128>, grid, dq_smem<128>(), a, s);
+  if (D == 64)
+    return launch_ws(flash_dq_kernel<64>, grid, dq_smem<64>(), s, a, tq, tk,
+                     tv, tg);
+  return launch_ws(flash_dq_kernel<128>, grid, dq_smem<128>(), s, a, tq, tk,
+                   tv, tg);
 }
 
 // The dynamic shared memory a launch requests: kernel 0 flash_fwd, 1

@@ -33,6 +33,11 @@ constexpr int kMaxRowThreads = 512;
 constexpr int kMaxD = kElems * kMaxRowThreads;
 // Threads a row kernel's CTA aims for: narrow rows share a CTA.
 constexpr int kCtaThreads = 256;
+// rms_fwd's one-warp rows: a lane holds kLaneElems elements, so a warp
+// takes rows up to kWarpMaxD wide; kWarpRows rows (warps) share a CTA.
+constexpr int kLaneElems = 32;
+constexpr int kWarpMaxD = 32 * kLaneElems;
+constexpr int kWarpRows = 8;
 // Rows whose dscale/dbias partials one ln_bwd CTA sums into its partial row.
 // A multiple of every rows-per-CTA the launcher picks (1, 2, 4 or 8).
 constexpr int kBwdRows = 16;
@@ -78,6 +83,25 @@ __device__ __forceinline__ void store(T* p, const float* in) {
   *reinterpret_cast<Pack<T, VEC>*>(p) = pk;
 }
 
+// VEC fp32 values of scale at p, as float4 loads where VEC allows (p then
+// 16-byte aligned).
+template <int VEC>
+__device__ __forceinline__ void load_scale(const float* p, float* out) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + j);
+      out[j] = f.x;
+      out[j + 1] = f.y;
+      out[j + 2] = f.z;
+      out[j + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) out[j] = p[j];
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -100,7 +124,8 @@ __device__ __forceinline__ float row_sum(float v, float* red) {
 
 // ---------------------------------------------------------------------------
 // ln_fwd: replaces _ln_fwd_kernel (ray_tpu/ops/fused_norm.py:121).
-// rms_fwd (norm_fwd with RMS = true): replaces _rms_fwd_kernel (:137).
+// rms_fwd at D > kWarpMaxD (rms_fwd_wide_kernel: norm_fwd with RMS = true);
+// narrower rows take rms_fwd_kernel below.
 //
 // A row of D elements is spread over blockDim.x threads (a multiple of 32),
 // each holding up to kElems elements in registers; blockDim.y rows share a
@@ -192,11 +217,68 @@ __global__ void __launch_bounds__(kMaxRowThreads)
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kMaxRowThreads)
-    rms_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                   const float* __restrict__ bias, T* __restrict__ y,
-                   float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                   int rows, int d, float eps) {
+    rms_fwd_wide_kernel(const T* __restrict__ x,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ bias, T* __restrict__ y,
+                        float* __restrict__ mean_out,
+                        float* __restrict__ rstd_out, int rows, int d,
+                        float eps) {
   norm_fwd<T, VEC, true>(x, scale, bias, y, mean_out, rstd_out, rows, d, eps);
+}
+
+// ---------------------------------------------------------------------------
+// rms_fwd: replaces _rms_fwd_kernel (ray_tpu/ops/fused_norm.py:137) for rows
+// up to kWarpMaxD wide (Llama small's 1024 included).
+//
+// One warp a row: a lane holds up to kLaneElems elements in registers
+// (at D = 1024 bf16, four 16-byte loads, all issued before the reduction),
+// and the sum of squares is a warp-shuffle reduction alone -- no shared
+// memory and no barrier, so the kWarpRows rows of a CTA run independently.
+// rstd = rsqrt(mean(x^2) + eps) in fp32, y = x * rstd * scale in the I/O
+// dtype, scale read as float4 where VEC allows; lane 0 writes rstd.
+// Bound: bytes, 2*R*D*sizeof(T) + 4*R + 4*D.
+// ---------------------------------------------------------------------------
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWarpRows * 32)
+    rms_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                   T* __restrict__ y, float* __restrict__ rstd_out, int rows,
+                   int d, float eps) {
+  constexpr int NV = kLaneElems / VEC;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpRows + (threadIdx.x >> 5);
+  if (row >= rows) return;  // no barrier follows
+  const size_t off = (size_t)row * d;
+
+  float v[NV][VEC];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int c = (k * 32 + lane) * VEC;
+    if (c < d) {
+      load<T, VEC>(x + off + c, v[k]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) v[k][j] = 0.f;
+    }
+  }
+  float sq = 0.f;
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) sq += v[k][j] * v[k][j];
+  const float rstd = rsqrtf(warp_sum(sq) / d + eps);
+
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int c = (k * 32 + lane) * VEC;
+    if (c < d) {
+      float w[VEC], o[VEC];
+      load_scale<VEC>(scale + c, w);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) o[j] = v[k][j] * rstd * w[j];
+      store<T, VEC>(y + off + c, o);
+    }
+  }
+  if (lane == 0) rstd_out[row] = rstd;
 }
 
 // ---------------------------------------------------------------------------
@@ -451,15 +533,39 @@ cudaError_t ln_fwd_launch(const void* x, const void* scale, const void* bias,
   };
   if constexpr (RMS) {
     if (vec)
-      args(rms_fwd_kernel<T, V>);
+      args(rms_fwd_wide_kernel<T, V>);
     else
-      args(rms_fwd_kernel<T, 1>);
+      args(rms_fwd_wide_kernel<T, 1>);
   } else {
     if (vec)
       args(ln_fwd_kernel<T, V>);
     else
       args(ln_fwd_kernel<T, 1>);
   }
+  return cudaGetLastError();
+}
+
+// rms_fwd: one warp a row up to kWarpMaxD, the multi-warp rows past it.
+template <typename T>
+cudaError_t rms_fwd_launch(const void* x, const void* scale, void* y,
+                           void* rstd, int rows, int d, float eps,
+                           cudaStream_t stream) {
+  if (d > kWarpMaxD)
+    return ln_fwd_launch<T, true>(x, scale, nullptr, y, nullptr, rstd, rows,
+                                  d, eps, stream);
+  constexpr int V = 16 / sizeof(T);
+  const bool vec =
+      d % V == 0 && aligned16(x) && aligned16(y) && aligned16(scale);
+  const int grid = (rows + kWarpRows - 1) / kWarpRows;
+  auto args = [&](auto kernel) {
+    kernel<<<grid, kWarpRows * 32, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const float*>(scale),
+        static_cast<T*>(y), static_cast<float*>(rstd), rows, d, eps);
+  };
+  if (vec)
+    args(rms_fwd_kernel<T, V>);
+  else
+    args(rms_fwd_kernel<T, 1>);
   return cudaGetLastError();
 }
 
@@ -536,7 +642,8 @@ cudaError_t gelu_launch(const void* x, const void* g, void* out, int64_t n,
 // C interface. dtype: 0 = float32, 1 = bfloat16. Scale, bias, mean, rstd and
 // the partials are always float32. A zero-size call launches nothing. The
 // LayerNorm and RMSNorm entry points share the row kernels (RMS template
-// flag) and the rt_ln_max_d / rt_ln_bwd_rows_per_block geometry.
+// flag; rms_fwd has its own one-warp rows up to kWarpMaxD) and the
+// rt_ln_max_d / rt_ln_bwd_rows_per_block geometry.
 // ---------------------------------------------------------------------------
 extern "C" {
 
@@ -583,11 +690,9 @@ cudaError_t rt_rms_fwd(const void* x, const void* scale, void* y, void* rstd,
   if (rows == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return ln_fwd_launch<float, true>(x, scale, nullptr, y, nullptr, rstd,
-                                      rows, d, eps, s);
+    return rms_fwd_launch<float>(x, scale, y, rstd, rows, d, eps, s);
   if (dtype == 1)
-    return ln_fwd_launch<__nv_bfloat16, true>(x, scale, nullptr, y, nullptr,
-                                              rstd, rows, d, eps, s);
+    return rms_fwd_launch<__nv_bfloat16>(x, scale, y, rstd, rows, d, eps, s);
   return cudaErrorInvalidValue;
 }
 

@@ -223,6 +223,48 @@ def test_rms_norm_kernels_match_plain(cuda, dtype, rows, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(64, 1024), (37, 1024), (37, 1025),
+                                    (37, 1032), (37, 1), (37, 31),
+                                    (16, 8192), (13, 768)])
+def test_rms_fwd_one_warp_rows_match_plain(cuda, dtype, rows, d):
+    """rms_fwd takes one warp a row up to 1024 wide and the multi-warp rows
+    past it: y within one bf16 ulp (fp32: 1e-5) and rstd within 1e-5 of the
+    plain version, at the limit and just past it (1032 aligned, 1025 not),
+    at D = 1 and 31, and with row counts that are not a multiple of the
+    CTA's 8 rows."""
+    g = torch.Generator(device=cuda).manual_seed(rows * d)
+    x = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
+    scale = 1 + 0.1 * torch.randn(d, device=cuda, generator=g)
+    before = fn.KERNEL_INVOCATIONS["rms_fwd"]
+    y, rstd = fn.rms_fwd(x, scale)
+    y_ref, rstd_ref = fn.ref_rms_fwd(x, scale)
+    torch.cuda.synchronize()
+    assert fn.KERNEL_INVOCATIONS["rms_fwd"] == before + 1
+    _check(y, y_ref, 1e-5)
+    _check(rstd, rstd_ref, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [96, 1024])
+def test_rms_fwd_takes_unaligned_rows(cuda, dtype, d):
+    """x and scale one element past a 16-byte boundary: the kernel reads
+    them an element at a time (VEC = 1) and matches the plain version."""
+    rows = 21
+    g = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn(rows * d + 1, device=cuda, generator=g).to(dtype)
+    x = x[1:].view(rows, d)
+    scale = (1 + 0.1 * torch.randn(d + 1, device=cuda, generator=g))[1:]
+    assert x.data_ptr() % 16 and scale.data_ptr() % 16
+    y, rstd = fn.rms_fwd(x, scale)
+    y_ref, rstd_ref = fn.ref_rms_fwd(x, scale)
+    torch.cuda.synchronize()
+    _check(y, y_ref, 1e-5)
+    _check(rstd, rstd_ref, 1e-5)
+
+
+@pytest.mark.gpu
 def test_rms_autograd_through_kernels_matches_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn(4, 16, 1024, device=cuda, generator=g)
@@ -357,9 +399,13 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fa.flash_fwd(z, z, z, softmax_scale=1.0, causal=True)
 
 
-# Tile edges of the warp-specialised kernels: 128-row fixed tiles, 128-key
-# (forward) and 64- or 32-row (dK/dV) swept tiles, TMA's zero fill past T.
+# Tile edges of the warp-specialised kernels: 128-row fixed tiles; swept
+# tiles of 128 or 64 keys (forward), 64 or 16 q rows (dK/dV) and 64 keys
+# (dQ); TMA's zero fill past T.
 EDGE_SEQS = (1, 63, 64, 65, 127, 128, 129, 2049)
+# The backward kernels the tile-edge, external-lse and determinism tests
+# hold, each against its plain version.
+BWD_KERNELS = ("flash_dkv", "flash_dq")
 
 
 def _edge_inputs(cuda, t, d):
@@ -369,11 +415,23 @@ def _edge_inputs(cuda, t, d):
     return _flash_inputs(cuda, b, t, h, d, 1000 + t + d)
 
 
+def _bwd(kernel, q, k, v, do, lse, delta, kw, plain=False):
+    """The named backward kernel's outputs -- (dk, dv) or (dq,) -- or, with
+    ``plain``, its plain version's."""
+    if kernel == "flash_dkv":
+        f = fa.ref_flash_dkv if plain else fa.flash_dkv
+        return f(q, k, v, do, lse, delta, **kw)
+    f = fa.ref_flash_dq if plain else fa.flash_dq
+    return (f(q, k, v, do, lse, delta, **kw),)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("t", EDGE_SEQS)
-def test_flash_fwd_and_dkv_at_tile_edges(cuda, t, d, causal):
+@pytest.mark.parametrize("kernel", BWD_KERNELS)
+def test_flash_fwd_and_dkv_at_tile_edges(cuda, kernel, t, d, causal):
+    """The forward, then the ``kernel`` backward, at every tile edge."""
     q, k, v, do = _edge_inputs(cuda, t, d)
     assert not q.is_contiguous()
     kw = dict(softmax_scale=d ** -0.5, causal=causal)
@@ -383,44 +441,50 @@ def test_flash_fwd_and_dkv_at_tile_edges(cuda, t, d, causal):
         1.0, float(lse_r.abs().max()))
     _close_bf16(out, out_r)
     delta = fa.flash_delta(out_r, do)
-    dk, dv = fa.flash_dkv(q, k, v, do, lse_r, delta, **kw)
-    dk_r, dv_r = fa.ref_flash_dkv(q, k, v, do, lse_r, delta, **kw)
-    if t == 1:
-        # One key: the softmax is constant, dS is 0 up to the rounding of
-        # dO.V - delta, and both dK are that rounding noise.
-        assert float(dk.float().abs().max()) <= 1e-3
-        assert float(dk_r.float().abs().max()) <= 1e-3
-    else:
-        _close_bf16(dk, dk_r)
-    _close_bf16(dv, dv_r)
+    got = _bwd(kernel, q, k, v, do, lse_r, delta, kw)
+    want = _bwd(kernel, q, k, v, do, lse_r, delta, kw, plain=True)
+    # dk, dv or dq; dK and dQ are products of dS.
+    for i, (a, b) in enumerate(zip(got, want)):
+        if t == 1 and i == 0:
+            # One key: the softmax is constant, dS is 0 up to the rounding
+            # of dO.V - delta, and both dK (dQ) are that rounding noise.
+            assert float(a.float().abs().max()) <= 1e-3
+            assert float(b.float().abs().max()) <= 1e-3
+        else:
+            _close_bf16(a, b)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [64, 128])
-def test_flash_dkv_takes_shifted_and_masking_lse(cuda, d):
+@pytest.mark.parametrize("kernel", BWD_KERNELS)
+def test_flash_dkv_takes_shifted_and_masking_lse(cuda, kernel, d):
+    """A global lse (shifted) and ring attention's masking lse (+1e30,
+    p = 0 with no NaN), for each backward kernel."""
     q, k, v, do = _edge_inputs(cuda, 129, d)
     kw = dict(softmax_scale=d ** -0.5, causal=True)
     out_r, lse_r = fa.ref_flash_fwd(q, k, v, **kw)
     delta = fa.flash_delta(out_r, do)
     shifted = lse_r + 0.5  # P scaled by exp(-0.5), as a global lse gives
-    dk, dv = fa.flash_dkv(q, k, v, do, shifted, delta, **kw)
-    dk_r, dv_r = fa.ref_flash_dkv(q, k, v, do, shifted, delta, **kw)
-    _close_bf16(dk, dk_r)
-    _close_bf16(dv, dv_r)
+    got = _bwd(kernel, q, k, v, do, shifted, delta, kw)
+    want = _bwd(kernel, q, k, v, do, shifted, delta, kw, plain=True)
+    for a, b in zip(got, want):
+        _close_bf16(a, b)
     masking = torch.full_like(lse_r, 1e30)  # ring attention's masked step
-    dk, dv = fa.flash_dkv(q, k, v, do, masking, delta, **kw)
-    assert bool((dk == 0).all()) and bool((dv == 0).all())
+    for a in _bwd(kernel, q, k, v, do, masking, delta, kw):
+        assert bool((a == 0).all())
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [64, 128])
-def test_flash_fwd_and_dkv_are_deterministic(cuda, d):
+@pytest.mark.parametrize("kernel", BWD_KERNELS)
+def test_flash_fwd_and_dkv_are_deterministic(cuda, kernel, d):
+    """The forward and the ``kernel`` backward, bitwise the same twice."""
     q, k, v, do = _edge_inputs(cuda, 1000, d)
     kw = dict(softmax_scale=d ** -0.5, causal=True)
     runs = []
     for _ in range(2):
         out, lse = fa.flash_fwd(q, k, v, **kw)
         delta = fa.flash_delta(out, do)
-        runs.append((out, lse, *fa.flash_dkv(q, k, v, do, lse, delta, **kw)))
+        runs.append((out, lse, *_bwd(kernel, q, k, v, do, lse, delta, kw)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
