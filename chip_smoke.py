@@ -8,20 +8,27 @@ that fails:
 
 1. device: the card's name and power limit from nvidia-smi; TF32 off;
 2. build: both kernel sources (fused_norm.cu, flash_attention.cu), one nvcc
-   each, started together, timed;
+   each, started together, timed; ptxas's registers, spills, shared memory
+   and performance notes of every kernel of both;
 3. kernel vs plain version: each kernel against its plain PyTorch version
    on the same inputs, and the device time of the kernel, the plain
    version and one PyTorch call for the same function (the yardstick,
    never called by the port):
    - the LayerNorm and GELU kernels at the GPT-2-small shapes (R = 8 x 1024
-     rows, D = 768, GELU width 3072) in bf16 and fp32;
+     rows, D = 768, GELU width 3072) in bf16 and fp32 (``ln_bwd``'s dscale
+     and dbias come from its partial rows through ``ln_bwd_sum``, which
+     the check and the time include; the LayerNorm backward's yardstick is
+     autograd through ``F.layer_norm``, timed also with the dres add);
    - the RMSNorm kernels at the Llama-small shape (R = 4 x 2048 rows,
      D = 1024) in bf16 and fp32; yardstick ``F.rms_norm`` and its autograd
      backward;
    - all six norm kernels at odd widths that exercise the masked tails,
-     and the RMSNorm kernels at the widths around ``rms_fwd``'s one-warp
+     the RMSNorm kernels at the widths around ``rms_fwd``'s one-warp
      limit (1024: at it; 1025 and 1032: just past it, unaligned and
-     aligned) and at D = 1 and 31;
+     aligned) and at D = 1 and 31, and the LayerNorm and GELU kernels
+     around the LayerNorm kernels' one-warp rows (768 and 1024 at 37, 45
+     and 64 rows; 769 and 1025 past them); ``ln_bwd`` is also called
+     twice on the same inputs and must give the same bits;
    - the flash kernels at the GPT-2-small shape (B=8, T=1024, H=12, D=64,
      bf16, causal, q/k/v strided views of one [B, T, 3*768] tensor, as the
      model passes them), at the Llama-small shape (B=4, T=2048, H=16,
@@ -148,6 +155,10 @@ FLASH_LLAMA_CASE = (L_BATCH, L_SEQ, L_N_HEAD, 64, True)
 # with 37 rows, not a multiple of the 8 rows of its CTA.
 NORM_ODD_WIDTHS = ((37, 100), (64, 8192), (37, 2050))
 RMS_WARP_WIDTHS = ((37, 1), (37, 31), (37, 1024), (37, 1025), (37, 1032))
+# The LayerNorm kernels around their one-warp rows (up to 1024 wide and
+# read 16 bytes at a time): 37 and 45 rows are not a multiple of ln_bwd's
+# 32-row block; 769 is not readable 16 bytes at a time, 1025 too wide.
+LN_WARP_WIDTHS = ((37, 768), (45, 768), (37, 769), (64, 1024), (64, 1025))
 CROSSOVER_SEQS = (512, 1024, 2048)
 
 
@@ -214,6 +225,9 @@ def check_kernels(torch, fn, rows, d, dtype, failures, seed):
                 if not c > 0.9999:
                     failures.append(f"ln_bwd {part} {case}: cosine {c}")
         errs["ln_bwd"] = max(errs["ln_bwd"], *e)
+        again = fn.ln_bwd(x, mu_r, rstd_r, scale, dy, res)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            failures.append(f"ln_bwd {case}: two calls differ")
     errs["gelu_fwd"] = compare(torch, f"gelu_fwd {tag}", fn.gelu_fwd(xg),
                                fn.ref_gelu(xg), 1e-5, failures)
     errs["gelu_bwd"] = compare(torch, f"gelu_bwd {tag}", fn.gelu_bwd(xg, gg),
@@ -259,11 +273,15 @@ def time_kernels(torch, fn, inp, spec, flush):
                                                           approximate="tanh"),
                      3 * n * es, 20 * n),
     }
-    return {name: {"ms": device_ms(kern, flush),
-                   "plain_ms": device_ms(plain, flush),
-                   "library_ms": device_ms(lib, flush),
-                   **bound(nbytes, ops, spec, "fp32_flops")}
-            for name, (kern, plain, lib, nbytes, ops) in cases.items()}
+    times = {name: {"ms": device_ms(kern, flush),
+                    "plain_ms": device_ms(plain, flush),
+                    "library_ms": device_ms(lib, flush),
+                    **bound(nbytes, ops, spec, "fp32_flops")}
+             for name, (kern, plain, lib, nbytes, ops) in cases.items()}
+    # The library's backward has no dres add; with it, it does ln_bwd's work.
+    times["ln_bwd"]["library_dres_ms"] = device_ms(
+        lambda: cases["ln_bwd"][2]()[0] + dres, flush)
+    return times
 
 
 def check_rms(torch, fn, rows, d, dtype, failures, seed):
@@ -510,21 +528,42 @@ def compare_paths(torch, loss_fn, params, tokens, paths):
     return report
 
 
-def ptxas_report(log_text, fa):
-    """{kernel<D>: registers, spill bytes, static and dynamic shared memory
-    and ptxas's performance notes} for each flash kernel, read from the
-    ``-Xptxas -v`` log the build keeps; the dynamic shared memory is what
-    the launcher requests (ptxas sees only static shared memory)."""
-    pat = re.compile(r"(flash_(fwd|dkv|dq)_kernel)ILi(\d+)E")
+# Template arguments in a mangled kernel name: the I/O type, an int, a bool.
+_MANGLED_ARG = re.compile(r"13__nv_bfloat16|f|Li(\d+)E|Lb([01])E")
+_KERNEL = re.compile(r"((?:ln|rms|gelu|flash)_\w*?kernel)(?:I((?:13__nv_bfloat16"
+                     r"|f|Li\d+E|Lb[01]E)+)E)?")
+
+
+def _kernel_name(line):
+    """``ln_bwd_kernel<bf16,8,3>`` (``ln_bwd_sum_kernel``: no template) for
+    a line naming a mangled kernel of either source, else None."""
+    m = _KERNEL.search(line)
+    if not m:
+        return None
+    if m.group(2) is None:
+        return m.group(1)
+    args = []
+    for a in _MANGLED_ARG.finditer(m.group(2)):
+        args.append({"13__nv_bfloat16": "bf16", "f": "f32"}.get(
+            a.group(0), a.group(1) or a.group(2)))
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def ptxas_report(log_texts, fa):
+    """{kernel<args>: registers, spill bytes, static and dynamic shared
+    memory and ptxas's performance notes} for every kernel of both sources
+    (``-Xptxas -v`` logs the build keeps); a flash kernel's dynamic shared
+    memory is what its launcher requests (ptxas sees only static shared
+    memory), the norm kernels take none."""
     report, cur = {}, None
-    for line in log_text.splitlines():
-        m = pat.search(line)
-        if "Compiling entry function" in line and m:
-            cur = f"{m.group(1)}<{m.group(3)}>"
+    for line in "\n".join(log_texts).splitlines():
+        name = _kernel_name(line)
+        if "Compiling entry function" in line and name:
+            cur = name
+            m = re.match(r"(flash_(?:fwd|dkv|dq))_kernel<(\d+)>", name)
             report.setdefault(cur, {"notes": []})["dynamic_smem"] = (
-                fa.smem_bytes(f"flash_{m.group(2)}", int(m.group(3))))
-        elif m and re.search(r"\(C\d+\)", line):
-            name = f"{m.group(1)}<{m.group(3)}>"
+                fa.smem_bytes(m.group(1), int(m.group(2))) if m else 0)
+        elif name and re.search(r"\(C\d+\)", line):
             code = re.search(r"\((C\d+)\)", line).group(1)
             report.setdefault(name, {"notes": []})["notes"].append(code)
         elif cur and "spill stores" in line:
@@ -583,14 +622,18 @@ def main() -> int:
     for lib in SOURCES:
         shutil.copy(_build.library_path(lib).with_suffix(".log"),
                     OUT / f"nvcc_{lib}.log")
-    report["ptxas"] = ptxas_report((OUT / "nvcc_flash_attention.log")
-                                   .read_text(), fa)
+    report["ptxas"] = ptxas_report(
+        [(OUT / f"nvcc_{lib}.log").read_text() for lib in SOURCES], fa)
     print("ptxas (registers, spill stores/loads B, static + dynamic shared "
           "memory B, notes): " + "; ".join(
               f"{k} {r.get('registers')}, {r.get('spill_stores')}/"
               f"{r.get('spill_loads')}, {r.get('static_smem')} + "
               f"{r.get('dynamic_smem')}, {','.join(r['notes']) or 'none'}"
               for k, r in report["ptxas"].items()))
+    spills = [k for k, r in report["ptxas"].items()
+              if r.get("spill_stores") or r.get("spill_loads")]
+    print(f"ptxas: {len(report['ptxas'])} kernels, spills in "
+          f"{', '.join(spills) or 'none'}")
 
     # Phase 3: each kernel against its plain version.
     spec = device_spec(name)
@@ -617,6 +660,9 @@ def main() -> int:
     for rows, d in RMS_WARP_WIDTHS:
         for dtype in (torch.bfloat16, torch.float32):
             check_rms(torch, fn, rows, d, dtype, failures, rows + d + 1)
+    for rows, d in LN_WARP_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            check_kernels(torch, fn, rows, d, dtype, failures, rows + d)
     errs, inp = check_flash(torch, fa, FLASH_CASES[0], failures, 0)
     times = time_flash(torch, fa, inp, spec, flush)
     results["bfloat16"].update({k: {"max_abs_err": errs[k], **times[k]}
@@ -649,9 +695,11 @@ def main() -> int:
                 shape = llama_shape if k in RMS_KERNELS else gpt2_shape
             per_step = (EXPECTED_LLAMA if k in RMS_KERNELS or tag
                         else EXPECTED_PER_STEP)[k]
-            host = (f"host_us={r['host_us']:.1f} " if k in FLASH_KERNELS
-                    else "")
-            print(f"{k}{tag}: kernel_ms={r['ms']:.4f} {host}"
+            extra = (f"host_us={r['host_us']:.1f} " if k in FLASH_KERNELS
+                     else "")
+            if "library_dres_ms" in r:
+                extra = f"library_dres_ms={r['library_dres_ms']:.4f} "
+            print(f"{k}{tag}: kernel_ms={r['ms']:.4f} {extra}"
                   f"plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']:.4f} "
                   f"bound_us={r['bound_ms'] * 1e3:.1f} ({r['bound_by']}) "
@@ -716,6 +764,8 @@ def main() -> int:
             "launches_per_step": main["launches_per_step"][kname],
             "dtype": "bfloat16",
         }
+        if "library_dres_ms" in bf:
+            entry["library_dres_ms"] = bf["library_dres_ms"]
         if kname in FLASH_KERNELS:
             entry["library"] = bf["library"]
             entry["host_us"] = bf["host_us"]

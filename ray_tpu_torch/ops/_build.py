@@ -15,7 +15,8 @@ first use, and ``build`` lets a caller start several builds at once.
 The calling convention the kernel wrappers share lives here too: a CPU
 tensor takes the plain version (``on_cpu``), a launcher gets PyTorch's
 current stream (``stream``), and ``launch`` raises on a non-zero
-``cudaError_t`` and counts only launches that were accepted.
+``cudaError_t`` (``raise_on_error``) and counts only launches that were
+accepted.
 """
 
 from __future__ import annotations
@@ -122,10 +123,14 @@ def stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def raise_on_error(name: str, rc: int) -> None:
+    """Raise if a C launcher returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
 def launch(counter, name: str, fn, *args) -> None:
     """Call the C launcher ``fn``; raise if it returns a CUDA error, else
     add one to ``counter[name]``."""
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    raise_on_error(name, fn(*args))
     counter[name] += 1

@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 // Widest LayerNorm row the kernels take: a thread holds kElems elements of a
@@ -33,14 +35,23 @@ constexpr int kMaxRowThreads = 512;
 constexpr int kMaxD = kElems * kMaxRowThreads;
 // Threads a row kernel's CTA aims for: narrow rows share a CTA.
 constexpr int kCtaThreads = 256;
-// rms_fwd's one-warp rows: a lane holds kLaneElems elements, so a warp
-// takes rows up to kWarpMaxD wide; kWarpRows rows (warps) share a CTA.
+// One-warp rows (rms_fwd, ln_fwd, ln_bwd): a lane holds up to kLaneElems
+// elements, so a warp takes rows up to kWarpMaxD wide; the forward kernels
+// put kWarpRows rows (warps) in a CTA.
 constexpr int kLaneElems = 32;
 constexpr int kWarpMaxD = 32 * kLaneElems;
 constexpr int kWarpRows = 8;
-// Rows whose dscale/dbias partials one ln_bwd CTA sums into its partial row.
-// A multiple of every rows-per-CTA the launcher picks (1, 2, 4 or 8).
-constexpr int kBwdRows = 16;
+// Rows whose column partials one backward CTA sums into its partial row
+// (one [D] fp32 row of dscale, and for LayerNorm one of dbias): ln_bwd's
+// kLnBwdWarps warps walk a block of kLnBwdRows rows; rms_bwd keeps its own
+// block of kRmsBwdRows. Both are multiples of every rows-per-CTA that the
+// multi-warp body's launcher picks (1, 2, 4 or 8).
+constexpr int kLnBwdRows = 32;
+constexpr int kLnBwdWarps = 4;
+constexpr int kRmsBwdRows = 16;
+// ln_bwd_sum's row groups: a CTA sums 32 columns of the partial rows with
+// kSumGroups warps, each over every kSumGroups-th row.
+constexpr int kSumGroups = 16;
 
 constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2 / pi)
 constexpr float kGeluA = 0.044715f;
@@ -123,9 +134,9 @@ __device__ __forceinline__ float row_sum(float v, float* red) {
 }
 
 // ---------------------------------------------------------------------------
-// ln_fwd: replaces _ln_fwd_kernel (ray_tpu/ops/fused_norm.py:121).
-// rms_fwd at D > kWarpMaxD (rms_fwd_wide_kernel: norm_fwd with RMS = true);
-// narrower rows take rms_fwd_kernel below.
+// The multi-warp row body of the forward: ln_fwd (ln_fwd_wide_kernel) and
+// rms_fwd (rms_fwd_wide_kernel, RMS = true) for rows wider than kWarpMaxD;
+// narrower rows take the one-warp kernels below.
 //
 // A row of D elements is spread over blockDim.x threads (a multiple of 32),
 // each holding up to kElems elements in registers; blockDim.y rows share a
@@ -208,10 +219,11 @@ __device__ __forceinline__ void norm_fwd(const T* __restrict__ x,
 // Two entry points over one body, so that a profile names them apart.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kMaxRowThreads)
-    ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                  const float* __restrict__ bias, T* __restrict__ y,
-                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                  int rows, int d, float eps) {
+    ln_fwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                       const float* __restrict__ bias, T* __restrict__ y,
+                       float* __restrict__ mean_out,
+                       float* __restrict__ rstd_out, int rows, int d,
+                       float eps) {
   norm_fwd<T, VEC, false>(x, scale, bias, y, mean_out, rstd_out, rows, d, eps);
 }
 
@@ -227,23 +239,33 @@ __global__ void __launch_bounds__(kMaxRowThreads)
 }
 
 // ---------------------------------------------------------------------------
-// rms_fwd: replaces _rms_fwd_kernel (ray_tpu/ops/fused_norm.py:137) for rows
-// up to kWarpMaxD wide (Llama small's 1024 included).
+// ln_fwd: replaces _ln_fwd_kernel (ray_tpu/ops/fused_norm.py:121), and
+// rms_fwd: replaces _rms_fwd_kernel (:137), for rows up to kWarpMaxD wide
+// (GPT-2 small's 768 and Llama small's 1024 included).
 //
-// One warp a row: a lane holds up to kLaneElems elements in registers
-// (at D = 1024 bf16, four 16-byte loads, all issued before the reduction),
-// and the sum of squares is a warp-shuffle reduction alone -- no shared
-// memory and no barrier, so the kWarpRows rows of a CTA run independently.
-// rstd = rsqrt(mean(x^2) + eps) in fp32, y = x * rstd * scale in the I/O
-// dtype, scale read as float4 where VEC allows; lane 0 writes rstd.
-// Bound: bytes, 2*R*D*sizeof(T) + 4*R + 4*D.
+// One warp a row: a lane holds NV chunks of VEC elements in registers, all
+// loaded before the first reduction (at D = 768 bf16, three 16-byte loads:
+// the launcher picks NV from the width, so no lane carries a dead chunk).
+// Every reduction is a warp shuffle alone -- no shared memory and no
+// barrier, so the kWarpRows rows of a CTA run independently.
+// LayerNorm: mu = mean(x), then the centered variance mean((x-mu)^2) from
+// registers (as the reference computes it, not E[x^2] - mu^2),
+// rstd = rsqrt(var + eps), y = (x - mu) * rstd * scale + bias; lane 0 writes
+// mu and rstd. RMS: rstd = rsqrt(mean(x^2) + eps), y = x * rstd * scale, and
+// rstd alone (rms_fwd keeps NV = kLaneElems / VEC, as it was built).
+// scale and bias are read as float4 where VEC allows; LayerNorm issues
+// those loads with the row's, before the reductions, where VEC > 1
+// (rms_fwd reads scale after its reduction, as it was built).
+// Bound: bytes, as the multi-warp body above.
 // ---------------------------------------------------------------------------
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kWarpRows * 32)
-    rms_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                   T* __restrict__ y, float* __restrict__ rstd_out, int rows,
-                   int d, float eps) {
-  constexpr int NV = kLaneElems / VEC;
+template <typename T, int VEC, int NV, bool RMS>
+__device__ __forceinline__ void warp_norm_fwd(const T* __restrict__ x,
+                                              const float* __restrict__ scale,
+                                              const float* __restrict__ bias,
+                                              T* __restrict__ y,
+                                              float* __restrict__ mean_out,
+                                              float* __restrict__ rstd_out,
+                                              int rows, int d, float eps) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpRows + (threadIdx.x >> 5);
   if (row >= rows) return;  // no barrier follows
@@ -260,40 +282,109 @@ __global__ void __launch_bounds__(kWarpRows * 32)
       for (int j = 0; j < VEC; ++j) v[k][j] = 0.f;
     }
   }
+  // LayerNorm's scale and bias, in flight during the reductions where the
+  // rows are vectorised (registers are short for the element-wise rows).
+  constexpr bool kEarly = !RMS && VEC > 1;
+  float ws[kEarly ? NV : 1][VEC], bs[kEarly ? NV : 1][VEC];
+  if constexpr (kEarly) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int c = (k * 32 + lane) * VEC;
+      if (c < d) {
+        load_scale<VEC>(scale + c, ws[k]);
+        load_scale<VEC>(bias + c, bs[k]);
+      }
+    }
+  }
+  float mu = 0.f;
+  if constexpr (!RMS) {
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) sum += v[k][j];
+    mu = warp_sum(sum) / d;
+  }
   float sq = 0.f;
 #pragma unroll
-  for (int k = 0; k < NV; ++k)
+  for (int k = 0; k < NV; ++k) {
+    // The zeros past the row's end add nothing to x^2, but would add mu^2.
+    if (RMS || (k * 32 + lane) * VEC < d) {
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) sq += v[k][j] * v[k][j];
+      for (int j = 0; j < VEC; ++j) {
+        const float t = RMS ? v[k][j] : v[k][j] - mu;
+        sq += t * t;
+      }
+    }
+  }
   const float rstd = rsqrtf(warp_sum(sq) / d + eps);
 
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     const int c = (k * 32 + lane) * VEC;
     if (c < d) {
-      float w[VEC], o[VEC];
-      load_scale<VEC>(scale + c, w);
+      float o[VEC];
+      if constexpr (RMS) {
+        float w[VEC];
+        load_scale<VEC>(scale + c, w);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) o[j] = v[k][j] * rstd * w[j];
+        for (int j = 0; j < VEC; ++j) o[j] = v[k][j] * rstd * w[j];
+      } else {
+        float w[VEC], b[VEC];
+        if constexpr (kEarly) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            w[j] = ws[k][j];
+            b[j] = bs[k][j];
+          }
+        } else {
+          load_scale<VEC>(scale + c, w);
+          load_scale<VEC>(bias + c, b);
+        }
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) o[j] = (v[k][j] - mu) * rstd * w[j] + b[j];
+      }
       store<T, VEC>(y + off + c, o);
     }
   }
-  if (lane == 0) rstd_out[row] = rstd;
+  if (lane == 0) {
+    if constexpr (!RMS) mean_out[row] = mu;
+    rstd_out[row] = rstd;
+  }
+}
+
+template <typename T, int VEC, int NV>
+__global__ void __launch_bounds__(kWarpRows * 32)
+    ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                  const float* __restrict__ bias, T* __restrict__ y,
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                  int rows, int d, float eps) {
+  warp_norm_fwd<T, VEC, NV, false>(x, scale, bias, y, mean_out, rstd_out,
+                                   rows, d, eps);
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWarpRows * 32)
+    rms_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                   T* __restrict__ y, float* __restrict__ rstd_out, int rows,
+                   int d, float eps) {
+  warp_norm_fwd<T, VEC, kLaneElems / VEC, true>(x, scale, nullptr, y, nullptr,
+                                                rstd_out, rows, d, eps);
 }
 
 // ---------------------------------------------------------------------------
-// ln_bwd: replaces the LayerNorm variant of _norm_bwd_kernel
-// (ray_tpu/ops/fused_norm.py:184), in two phases inside one kernel.
-// rms_bwd (norm_bwd with RMS = true): replaces its RMSNorm variant, the same
-// two phases with mu = 0 and no c1: x-hat = x*rstd,
-// dx = rstd*(dy*scale - x-hat*c2) (+ dres), and only the dscale partials
-// (mean and dbias_part are unused, null).
+// The multi-warp row body of the backward: rms_bwd (RMS = true) at every
+// width, and ln_bwd (ln_bwd_wide_kernel) for rows wider than kWarpMaxD or
+// not readable 16 bytes at a time; ln_bwd's other rows take the one-warp
+// kernel below. Two phases inside one kernel:
 //
 // (a) Per row, x-hat is rebuilt from the saved fp32 mu and rstd; the two row
 //     reductions c1 = mean(dy*scale) and c2 = mean(dy*scale*x-hat) give
 //     dx = rstd*(dy*scale - c1 - x-hat*c2), plus the residual cotangent dres
-//     when its pointer is not null.
-// (b) Each CTA owns kBwdRows consecutive rows. A thread owns the same columns
+//     when its pointer is not null. RMS: mu = 0 and no c1, x-hat = x*rstd,
+//     dx = rstd*(dy*scale - x-hat*c2) (+ dres), and only the dscale partials
+//     (mean and dbias_part are unused, null).
+// (b) Each CTA owns ROWS consecutive rows. A thread owns the same columns
 //     in every row it visits, so it sums dy*x-hat and dy for them in registers;
 //     the CTA's row groups are then added in a fixed order through shared
 //     memory and written as one [D] fp32 partial row for dscale and one for
@@ -302,7 +393,7 @@ __global__ void __launch_bounds__(kWarpRows * 32)
 // Bound: bytes, 4*R*D*sizeof(T) with dres (3 reads, 1 write) + 8*R + partials
 // (RMS: 4*R and one partial row per CTA).
 // ---------------------------------------------------------------------------
-template <typename T, int VEC, bool RMS>
+template <typename T, int VEC, bool RMS, int ROWS>
 __device__ __forceinline__ void norm_bwd(const T* __restrict__ x,
                                          const float* __restrict__ mean,
                                          const float* __restrict__ rstd,
@@ -323,9 +414,9 @@ __device__ __forceinline__ void norm_bwd(const T* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc_s[k][j] = acc_b[k][j] = 0.f;
 
-  const int row0 = blockIdx.x * kBwdRows;
+  const int row0 = blockIdx.x * ROWS;
   // The same trip count for every thread keeps row_sum's barriers aligned.
-  for (int r = threadIdx.y; r < kBwdRows; r += blockDim.y) {
+  for (int r = threadIdx.y; r < ROWS; r += blockDim.y) {
     const int row = row0 + r;
     const bool live = row < rows;
     const size_t off = (size_t)(live ? row : 0) * d;
@@ -421,14 +512,14 @@ __device__ __forceinline__ void norm_bwd(const T* __restrict__ x,
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kMaxRowThreads)
-    ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mean,
-                  const float* __restrict__ rstd,
-                  const float* __restrict__ scale, const T* __restrict__ dy,
-                  const T* __restrict__ dres, T* __restrict__ dx,
-                  float* __restrict__ dscale_part,
-                  float* __restrict__ dbias_part, int rows, int d) {
-  norm_bwd<T, VEC, false>(x, mean, rstd, scale, dy, dres, dx, dscale_part,
-                          dbias_part, rows, d);
+    ln_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                       const float* __restrict__ rstd,
+                       const float* __restrict__ scale,
+                       const T* __restrict__ dy, const T* __restrict__ dres,
+                       T* __restrict__ dx, float* __restrict__ dscale_part,
+                       float* __restrict__ dbias_part, int rows, int d) {
+  norm_bwd<T, VEC, false, kLnBwdRows>(x, mean, rstd, scale, dy, dres, dx,
+                                      dscale_part, dbias_part, rows, d);
 }
 
 template <typename T, int VEC>
@@ -439,8 +530,184 @@ __global__ void __launch_bounds__(kMaxRowThreads)
                    const T* __restrict__ dres, T* __restrict__ dx,
                    float* __restrict__ dscale_part,
                    float* __restrict__ dbias_part, int rows, int d) {
-  norm_bwd<T, VEC, true>(x, mean, rstd, scale, dy, dres, dx, dscale_part,
-                         dbias_part, rows, d);
+  norm_bwd<T, VEC, true, kRmsBwdRows>(x, mean, rstd, scale, dy, dres, dx,
+                                      dscale_part, dbias_part, rows, d);
+}
+
+// ---------------------------------------------------------------------------
+// ln_bwd: replaces the LayerNorm variant of _norm_bwd_kernel
+// (ray_tpu/ops/fused_norm.py:184) for rows up to kWarpMaxD wide whose
+// pointers allow 16-byte loads (GPT-2 small's 768 included).
+//
+// One warp a row, kLnBwdWarps warps a CTA, and each warp walks every
+// kLnBwdWarps-th row of its CTA's block of kLnBwdRows rows. A lane owns the
+// same NV chunks of VEC columns in every row (NV picked from the width, as
+// in ln_fwd), so it holds its scale values and its dscale (sum of dy*x-hat)
+// and dbias (sum of dy) column sums in fp32 registers across the rows.
+// Per row, every load (x, dy, dres, mu, rstd) is issued before the row's
+// reductions, into packed 16-byte vectors that are widened to fp32 where
+// they are used. c1 = mean(dy*scale) and c2 = mean(dy*scale*x-hat) are two
+// warp-shuffle sums -- no shared memory and no barrier -- and
+// dx = rstd*(dy*scale - c1 - x-hat*c2) (+ dres).
+// At the end the CTA's warps add their column sums in warp order through
+// shared memory and write one [D] fp32 partial row each of dscale and dbias;
+// ln_bwd_sum then adds the [n_blocks, D] partials. No atomics: the same
+// result on every run.
+// Bound: bytes, 4*R*D*sizeof(T) with dres (3 reads, 1 write) + 8*R + 4*D +
+// 8*D per partial row.
+// ---------------------------------------------------------------------------
+
+// An empty asm that claims to rewrite every 32-bit word of p: what the
+// compiler derived from p before it is derived again after it.
+template <typename P>
+__device__ __forceinline__ void opaque(P& p) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&p);
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(P) / 4); ++i) asm volatile("" : "+r"(w[i]));
+}
+
+template <typename T, int VEC, int NV>
+__global__ void __launch_bounds__(kLnBwdWarps * 32)
+    ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                  const float* __restrict__ rstd,
+                  const float* __restrict__ scale, const T* __restrict__ dy,
+                  const T* __restrict__ dres, T* __restrict__ dx,
+                  float* __restrict__ dscale_part,
+                  float* __restrict__ dbias_part, int rows, int d) {
+  using P = Pack<T, VEC>;
+  __shared__ float comb[kLnBwdWarps * kWarpMaxD];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  float sc[NV][VEC], acc_s[NV][VEC], acc_b[NV][VEC];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int c = (k * 32 + lane) * VEC;
+    if (c < d) {
+      load_scale<VEC>(scale + c, sc[k]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) sc[k][j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc_s[k][j] = acc_b[k][j] = 0.f;
+  }
+
+  const int end = min(rows, (int)(blockIdx.x + 1) * kLnBwdRows);
+  for (int row = blockIdx.x * kLnBwdRows + warp; row < end;
+       row += kLnBwdWarps) {
+    const size_t off = (size_t)row * d;
+    const float mu = mean[row];
+    const float rs = rstd[row];
+    P xp[NV], gp[NV], rp[NV];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int c = (k * 32 + lane) * VEC;
+      if (c < d) {
+        xp[k] = *reinterpret_cast<const P*>(x + off + c);
+        gp[k] = *reinterpret_cast<const P*>(dy + off + c);
+        if (dres != nullptr) rp[k] = *reinterpret_cast<const P*>(dres + off + c);
+      }
+    }
+
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      if ((k * 32 + lane) * VEC < d) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xh = (to_f(xp[k].v[j]) - mu) * rs;
+          const float g = to_f(gp[k].v[j]);
+          const float dxh = g * sc[k][j];
+          s1 += dxh;
+          s2 += dxh * xh;
+          acc_s[k][j] += g * xh;
+          acc_b[k][j] += g;
+        }
+      }
+    }
+    const float c1 = warp_sum(s1) / d;
+    const float c2 = warp_sum(s2) / d;
+    // Widen x and dy again below instead of holding x-hat and dy*scale in
+    // fp32 registers across the two reductions: fewer live registers (160
+    // against 188 at D = 768 bf16) and a faster kernel (PERF.md).
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      opaque(xp[k]);
+      opaque(gp[k]);
+    }
+
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int c = (k * 32 + lane) * VEC;
+      if (c < d) {
+        float o[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xh = (to_f(xp[k].v[j]) - mu) * rs;
+          const float g = to_f(gp[k].v[j]);
+          o[j] = dres != nullptr ? to_f(rp[k].v[j]) : 0.f;
+          o[j] += rs * (g * sc[k][j] - c1 - xh * c2);
+        }
+        store<T, VEC>(dx + off + c, o);
+      }
+    }
+  }
+
+  // The warps' column sums, added in warp order: dscale, then dbias.
+  auto fold = [&](const float (&acc)[NV][VEC], float* __restrict__ part) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int c = (k * 32 + lane) * VEC;
+      if (c < d) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) comb[warp * d + c + j] = acc[k][j];
+      }
+    }
+    __syncthreads();
+    part += (size_t)blockIdx.x * d;
+    for (int c = threadIdx.x; c < d; c += kLnBwdWarps * 32) {
+      float s = comb[c];
+#pragma unroll
+      for (int w = 1; w < kLnBwdWarps; ++w) s += comb[w * d + c];
+      part[c] = s;
+    }
+    __syncthreads();  // the readers are done before comb is written again
+  };
+  fold(acc_s, dscale_part);
+  fold(acc_b, dbias_part);
+}
+
+// ---------------------------------------------------------------------------
+// ln_bwd_sum: the column sums of ln_bwd's partial rows, out[a][c] = sum over
+// the n rows r of parts[a][r][c] for a = 0 (dscale) and 1 (dbias), taken
+// outside the row kernel as the reference takes its partials' sum outside
+// its Pallas kernel. A CTA owns 32 columns of one of the two: warp g adds
+// rows g, g + kSumGroups, ... in order, and warp 0 adds the kSumGroups
+// sums in order, so the result is the same on every run. The partials were
+// just written and come from L2; torch.sum over the middle axis of the
+// same [2, n, D] tensor took 2-3x as long.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kSumGroups * 32)
+    ln_bwd_sum_kernel(const float* __restrict__ parts, int n, int d,
+                      float* __restrict__ out) {
+  __shared__ float red[kSumGroups][32];
+  const int lane = threadIdx.x & 31;
+  const int grp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  const float* p = parts + (size_t)blockIdx.y * n * d;
+  float s = 0.f;
+  if (c < d) {
+#pragma unroll 8
+    for (int r = grp; r < n; r += kSumGroups) s += p[(size_t)r * d + c];
+  }
+  red[grp][lane] = s;
+  __syncthreads();
+  if (grp == 0 && c < d) {
+#pragma unroll
+    for (int g = 1; g < kSumGroups; ++g) s += red[g][lane];
+    out[(size_t)blockIdx.y * d + c] = s;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -511,16 +778,29 @@ int row_threads(int d, int vec) {
 dim3 row_block(int d, int vec) {
   const int tpr = row_threads(d, vec);
   const int per_cta = tpr >= kCtaThreads ? 1 : kCtaThreads / tpr;
-  // Keep rows-per-CTA a power of two so it divides kBwdRows.
+  // Keep rows-per-CTA a power of two so it divides kLnBwdRows and
+  // kRmsBwdRows.
   int y = 1;
   while (y * 2 <= per_cta) y *= 2;
   return dim3(tpr, y);
 }
 
+// f(std::integral_constant<int, NV>{}) for the least NV in [1, MAX] that is
+// at least nv: the one-warp kernels' chunks a lane, fixed at compile time.
+template <int MAX, int NV = 1, typename F>
+void with_nv(int nv, F&& f) {
+  if constexpr (NV < MAX) {
+    if (nv > NV) return with_nv<MAX, NV + 1>(nv, f);
+  }
+  f(std::integral_constant<int, NV>{});
+}
+
+// The multi-warp forward rows (rows wider than kWarpMaxD).
 template <typename T, bool RMS>
-cudaError_t ln_fwd_launch(const void* x, const void* scale, const void* bias,
-                          void* y, void* mean, void* rstd, int rows, int d,
-                          float eps, cudaStream_t stream) {
+cudaError_t norm_fwd_wide_launch(const void* x, const void* scale,
+                                 const void* bias, void* y, void* mean,
+                                 void* rstd, int rows, int d, float eps,
+                                 cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = d % V == 0 && aligned16(x) && aligned16(y);
   const dim3 block = row_block(d, vec ? V : 1);
@@ -538,10 +818,37 @@ cudaError_t ln_fwd_launch(const void* x, const void* scale, const void* bias,
       args(rms_fwd_wide_kernel<T, 1>);
   } else {
     if (vec)
-      args(ln_fwd_kernel<T, V>);
+      args(ln_fwd_wide_kernel<T, V>);
     else
-      args(ln_fwd_kernel<T, 1>);
+      args(ln_fwd_wide_kernel<T, 1>);
   }
+  return cudaGetLastError();
+}
+
+// ln_fwd: one warp a row up to kWarpMaxD, the multi-warp rows past it.
+template <typename T>
+cudaError_t ln_fwd_launch(const void* x, const void* scale, const void* bias,
+                          void* y, void* mean, void* rstd, int rows, int d,
+                          float eps, cudaStream_t stream) {
+  if (d > kWarpMaxD)
+    return norm_fwd_wide_launch<T, false>(x, scale, bias, y, mean, rstd, rows,
+                                          d, eps, stream);
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = d % V == 0 && aligned16(x) && aligned16(y) &&
+                   aligned16(scale) && aligned16(bias);
+  const int grid = (rows + kWarpRows - 1) / kWarpRows;
+  auto args = [&](auto kernel) {
+    kernel<<<grid, kWarpRows * 32, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const float*>(scale),
+        static_cast<const float*>(bias), static_cast<T*>(y),
+        static_cast<float*>(mean), static_cast<float*>(rstd), rows, d, eps);
+  };
+  if (vec)
+    with_nv<kLaneElems / V>((d / V + 31) / 32, [&](auto nv) {
+      args(ln_fwd_kernel<T, V, decltype(nv)::value>);
+    });
+  else
+    args(ln_fwd_kernel<T, 1, kLaneElems>);
   return cudaGetLastError();
 }
 
@@ -551,8 +858,8 @@ cudaError_t rms_fwd_launch(const void* x, const void* scale, void* y,
                            void* rstd, int rows, int d, float eps,
                            cudaStream_t stream) {
   if (d > kWarpMaxD)
-    return ln_fwd_launch<T, true>(x, scale, nullptr, y, nullptr, rstd, rows,
-                                  d, eps, stream);
+    return norm_fwd_wide_launch<T, true>(x, scale, nullptr, y, nullptr, rstd,
+                                         rows, d, eps, stream);
   constexpr int V = 16 / sizeof(T);
   const bool vec =
       d % V == 0 && aligned16(x) && aligned16(y) && aligned16(scale);
@@ -569,16 +876,20 @@ cudaError_t rms_fwd_launch(const void* x, const void* scale, void* y,
   return cudaGetLastError();
 }
 
+// The multi-warp backward rows: rms_bwd at every width; ln_bwd for rows
+// wider than kWarpMaxD or not readable 16 bytes at a time.
 template <typename T, bool RMS>
-cudaError_t ln_bwd_launch(const void* x, const void* mean, const void* rstd,
-                          const void* scale, const void* dy, const void* dres,
-                          void* dx, void* dscale_part, void* dbias_part,
-                          int rows, int d, cudaStream_t stream) {
+cudaError_t norm_bwd_wide_launch(const void* x, const void* mean,
+                                 const void* rstd, const void* scale,
+                                 const void* dy, const void* dres, void* dx,
+                                 void* dscale_part, void* dbias_part, int rows,
+                                 int d, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
+  constexpr int kRows = RMS ? kRmsBwdRows : kLnBwdRows;
   const bool vec = d % V == 0 && aligned16(x) && aligned16(dy) &&
                    aligned16(dres) && aligned16(dx);
   const dim3 block = row_block(d, vec ? V : 1);
-  const dim3 grid((rows + kBwdRows - 1) / kBwdRows);
+  const dim3 grid((rows + kRows - 1) / kRows);
   auto args = [&](auto kernel) {
     kernel<<<grid, block, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const float*>(mean),
@@ -594,10 +905,37 @@ cudaError_t ln_bwd_launch(const void* x, const void* mean, const void* rstd,
       args(rms_bwd_kernel<T, 1>);
   } else {
     if (vec)
-      args(ln_bwd_kernel<T, V>);
+      args(ln_bwd_wide_kernel<T, V>);
     else
-      args(ln_bwd_kernel<T, 1>);
+      args(ln_bwd_wide_kernel<T, 1>);
   }
+  return cudaGetLastError();
+}
+
+// ln_bwd: one warp a row up to kWarpMaxD where every row pointer allows
+// 16-byte loads, the multi-warp rows otherwise.
+template <typename T>
+cudaError_t ln_bwd_launch(const void* x, const void* mean, const void* rstd,
+                          const void* scale, const void* dy, const void* dres,
+                          void* dx, void* dscale_part, void* dbias_part,
+                          int rows, int d, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = d % V == 0 && aligned16(x) && aligned16(dy) &&
+                   aligned16(dres) && aligned16(dx) && aligned16(scale);
+  if (!vec || d > kWarpMaxD)
+    return norm_bwd_wide_launch<T, false>(x, mean, rstd, scale, dy, dres, dx,
+                                          dscale_part, dbias_part, rows, d,
+                                          stream);
+  const int grid = (rows + kLnBwdRows - 1) / kLnBwdRows;
+  with_nv<kLaneElems / V>((d / V + 31) / 32, [&](auto nv) {
+    ln_bwd_kernel<T, V, decltype(nv)::value>
+        <<<grid, kLnBwdWarps * 32, 0, stream>>>(
+            static_cast<const T*>(x), static_cast<const float*>(mean),
+            static_cast<const float*>(rstd), static_cast<const float*>(scale),
+            static_cast<const T*>(dy), static_cast<const T*>(dres),
+            static_cast<T*>(dx), static_cast<float*>(dscale_part),
+            static_cast<float*>(dbias_part), rows, d);
+  });
   return cudaGetLastError();
 }
 
@@ -641,15 +979,18 @@ cudaError_t gelu_launch(const void* x, const void* g, void* out, int64_t n,
 // ---------------------------------------------------------------------------
 // C interface. dtype: 0 = float32, 1 = bfloat16. Scale, bias, mean, rstd and
 // the partials are always float32. A zero-size call launches nothing. The
-// LayerNorm and RMSNorm entry points share the row kernels (RMS template
-// flag; rms_fwd has its own one-warp rows up to kWarpMaxD) and the
-// rt_ln_max_d / rt_ln_bwd_rows_per_block geometry.
+// LayerNorm and RMSNorm entry points share the one-warp forward body and
+// the multi-warp row bodies (RMS template flag) and the rt_ln_max_d limit;
+// each backward exports the rows per partial row it writes
+// (rt_ln_bwd_rows_per_block, rt_rms_bwd_rows_per_block).
 // ---------------------------------------------------------------------------
 extern "C" {
 
 int rt_ln_max_d() { return kMaxD; }
 
-int rt_ln_bwd_rows_per_block() { return kBwdRows; }
+int rt_ln_bwd_rows_per_block() { return kLnBwdRows; }
+
+int rt_rms_bwd_rows_per_block() { return kRmsBwdRows; }
 
 cudaError_t rt_ln_fwd(const void* x, const void* scale, const void* bias,
                       void* y, void* mean, void* rstd, int rows, int d,
@@ -658,11 +999,11 @@ cudaError_t rt_ln_fwd(const void* x, const void* scale, const void* bias,
   if (rows == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return ln_fwd_launch<float, false>(x, scale, bias, y, mean, rstd, rows, d,
-                                       eps, s);
+    return ln_fwd_launch<float>(x, scale, bias, y, mean, rstd, rows, d, eps,
+                                s);
   if (dtype == 1)
-    return ln_fwd_launch<__nv_bfloat16, false>(x, scale, bias, y, mean, rstd,
-                                               rows, d, eps, s);
+    return ln_fwd_launch<__nv_bfloat16>(x, scale, bias, y, mean, rstd, rows,
+                                        d, eps, s);
   return cudaErrorInvalidValue;
 }
 
@@ -674,13 +1015,23 @@ cudaError_t rt_ln_bwd(const void* x, const void* mean, const void* rstd,
   if (rows == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return ln_bwd_launch<float, false>(x, mean, rstd, scale, dy, dres, dx,
-                                       dscale_part, dbias_part, rows, d, s);
+    return ln_bwd_launch<float>(x, mean, rstd, scale, dy, dres, dx,
+                                dscale_part, dbias_part, rows, d, s);
   if (dtype == 1)
-    return ln_bwd_launch<__nv_bfloat16, false>(x, mean, rstd, scale, dy, dres,
-                                               dx, dscale_part, dbias_part,
-                                               rows, d, s);
+    return ln_bwd_launch<__nv_bfloat16>(x, mean, rstd, scale, dy, dres, dx,
+                                        dscale_part, dbias_part, rows, d, s);
   return cudaErrorInvalidValue;
+}
+
+// parts [2, n, d] (ln_bwd's dscale and dbias partial rows) -> out [2, d].
+cudaError_t rt_ln_bwd_sum(const void* parts, int n, int d, void* out,
+                          void* stream) {
+  if (n < 1 || d < 1) return cudaErrorInvalidValue;
+  const dim3 grid((d + 31) / 32, 2);
+  ln_bwd_sum_kernel<<<grid, kSumGroups * 32, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(parts), n, d, static_cast<float*>(out));
+  return cudaGetLastError();
 }
 
 // RMSNorm: no bias, no mean, no dbias. dres may be null.
@@ -704,12 +1055,13 @@ cudaError_t rt_rms_bwd(const void* x, const void* rstd, const void* scale,
   if (rows == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return ln_bwd_launch<float, true>(x, nullptr, rstd, scale, dy, dres, dx,
-                                      dscale_part, nullptr, rows, d, s);
+    return norm_bwd_wide_launch<float, true>(x, nullptr, rstd, scale, dy,
+                                             dres, dx, dscale_part, nullptr,
+                                             rows, d, s);
   if (dtype == 1)
-    return ln_bwd_launch<__nv_bfloat16, true>(x, nullptr, rstd, scale, dy,
-                                              dres, dx, dscale_part, nullptr,
-                                              rows, d, s);
+    return norm_bwd_wide_launch<__nv_bfloat16, true>(
+        x, nullptr, rstd, scale, dy, dres, dx, dscale_part, nullptr, rows, d,
+        s);
   return cudaErrorInvalidValue;
 }
 

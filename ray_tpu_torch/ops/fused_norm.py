@@ -30,7 +30,8 @@ import math
 
 import torch
 
-from ray_tpu_torch.ops._build import launch, load_library, on_cpu, stream
+from ray_tpu_torch.ops._build import (launch, load_library, on_cpu,
+                                      raise_on_error, stream)
 
 LN_EPS = 1e-5  # matches models/gpt2.py _layer_norm
 RMS_EPS = 1e-6  # matches models/llama.py _rms_norm
@@ -49,8 +50,10 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 _SIGNATURES = {
     "rt_ln_max_d": [],
     "rt_ln_bwd_rows_per_block": [],
+    "rt_rms_bwd_rows_per_block": [],
     "rt_ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "rt_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rt_ln_bwd_sum": [_P, _I, _I, _P, _P],
     "rt_rms_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "rt_rms_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rt_gelu_fwd": [_P, _P, _LL, _I, _P],
@@ -201,8 +204,10 @@ def ln_fwd(x2d, scale, bias, eps: float = LN_EPS):
 def ln_bwd(x2d, mu, rstd, scale, dy, dres=None):
     """LayerNorm backward -> (dx, dscale [D] fp32, dbias [D] fp32); ``dres``
     (the residual cotangent, or None) is added into dx. The kernel writes
-    per-row-block fp32 partials that one ``torch.sum`` collapses, as the
-    JAX package sums its kernel's partials outside the kernel."""
+    one fp32 partial row of dscale and of dbias per block of
+    ``rt_ln_bwd_rows_per_block`` rows, and a second kernel
+    (``rt_ln_bwd_sum``) adds them in a fixed order, as the JAX package sums
+    its kernel's partials outside the kernel."""
     if on_cpu(x2d):
         return ref_ln_bwd(x2d, mu, rstd, scale, dy, dres)
     code = _io_dtype("ln_bwd", x2d)
@@ -228,8 +233,21 @@ def ln_bwd(x2d, mu, rstd, scale, dy, dres=None):
                 None if dres is None else dres.data_ptr(), dx.data_ptr(),
                 parts[0].data_ptr(), parts[1].data_ptr(), r, d, code,
                 stream(dev))
-    dscale, dbias = parts.sum(1)
+    dscale, dbias = ln_bwd_sum(parts)
     return dx, dscale, dbias
+
+
+def ln_bwd_sum(parts):
+    """``ln_bwd``'s partial rows [2, n, D] fp32 (dscale, dbias) on the card
+    -> their column sums [2, D], each column's rows added in a fixed order
+    by one kernel (``torch.sum`` over the middle axis is slower here)."""
+    _, n, d = parts.shape
+    dev = parts.device
+    sums = torch.empty(2, d, device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        raise_on_error("ln_bwd_sum", _lib().rt_ln_bwd_sum(
+            parts.data_ptr(), n, d, sums.data_ptr(), stream(dev)))
+    return sums
 
 
 def rms_fwd(x2d, scale, eps: float = RMS_EPS):
@@ -256,7 +274,9 @@ def rms_fwd(x2d, scale, eps: float = RMS_EPS):
 def rms_bwd(x2d, rstd, scale, dy, dres=None):
     """RMSNorm backward -> (dx, dscale [D] fp32); ``dres`` (the residual
     cotangent, or None) is added into dx. The kernel writes only dscale
-    partials, one [D] fp32 row per 16-row block, summed here."""
+    partials, one [D] fp32 row per block of ``rt_rms_bwd_rows_per_block``
+    rows (its own, so that ln_bwd's geometry cannot move it), summed
+    here."""
     if on_cpu(x2d):
         return ref_rms_bwd(x2d, rstd, scale, dy, dres)
     code = _io_dtype("rms_bwd", x2d)
@@ -272,7 +292,7 @@ def rms_bwd(x2d, rstd, scale, dy, dres=None):
     _check("rms_bwd rstd", rstd, device=dev, dtype=torch.float32, shape=(r,))
     _check("rms_bwd scale", scale, device=dev, dtype=torch.float32,
            shape=(d,))
-    n_blocks = -(-r // lib.rt_ln_bwd_rows_per_block())
+    n_blocks = -(-r // lib.rt_rms_bwd_rows_per_block())
     dx = torch.empty_like(x2d)
     parts = torch.empty(n_blocks, d, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):

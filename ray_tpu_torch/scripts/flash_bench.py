@@ -1,5 +1,5 @@
 """Time the flash-attention kernels at the two main-path shapes, and the
-RMSNorm and LayerNorm forward kernels at the two main-path row shapes.
+norm and GELU kernels at the two main-path row shapes.
 
 For each attention shape -- GPT-2 small's (B=8, T=1024, H=12, D=64,
 causal, q/k/v strided views of one qkv tensor), Llama small's (B=4,
@@ -12,23 +12,29 @@ launches, cold L2) and its wrapper's host cost per call (``host_us``: the
 host clock around 200 back-to-back calls, read before the device is
 synced; the median of 5 such batches).
 For each row shape -- Llama small's (R = 4 x 2048, D = 1024) and GPT-2
-small's (R = 8 x 1024, D = 768) -- in bf16 and fp32 it checks ``rms_fwd``
-and ``ln_fwd`` against their plain versions (bf16 within one ulp, fp32
-within 1e-5 of max(1, |y|), rstd and mu within 1e-5 relative) and takes
-their device times beside ``F.rms_norm``'s and ``F.layer_norm``'s (the
-library calls, timed here only).
+small's (R = 8 x 1024, D = 768) -- in bf16 and fp32 it checks
+``rms_fwd``, ``ln_fwd``, ``ln_bwd`` (with and without dres), ``rms_bwd``,
+``gelu_fwd`` and ``gelu_bwd`` (at four times the width) against their
+plain versions (bf16 outputs within one ulp and bf16 column sums by
+cosine > 0.9999; fp32 within 1e-5 forward and 1e-4 backward of max(1,
+the largest magnitude); rstd and mu within 1e-5 relative) and takes their
+device times beside the library calls for the same functions
+(``F.rms_norm``, ``F.layer_norm``, their autograd backwards, the
+LayerNorm one also plus the dres add, ``F.gelu`` and
+``aten.gelu_backward``; timed here only).
 Prints one JSON line and exits non-zero if a check fails. Needs a CUDA
 device.
 
     python ray_tpu_torch/scripts/flash_bench.py [--root DIR] [--label X]
-        [--out FILE]
+        [--out FILE] [--rows-only]
 
 ``--root`` names the checkout whose ``ray_tpu_torch`` is measured (by
 default this one), so one call can time two trees in turns: unpack the
 other with ``git archive`` and pass its directory. Only
 ``ray_tpu_torch.ops.flash_attention`` and ``ray_tpu_torch.ops.fused_norm``
 are taken from that tree; the helpers here are this file's own, which is
-why it is run as a file. ``--out`` appends the line to a file.
+why it is run as a file. ``--out`` appends the line to a file;
+``--rows-only`` skips the attention shapes.
 """
 
 from __future__ import annotations
@@ -161,33 +167,98 @@ def bf16_within_ulp(got, want) -> bool:
     return bool(((got - want).abs() <= ulp + 1e-5).all())
 
 
+def _bwd_ok(got, want, dtype) -> bool:
+    """A norm backward's (dx, column sums...) against its plain version:
+    dx within one bf16 ulp (fp32: 1e-4 of max(1, |dx|)), the fp32 column
+    sums within 1e-4 of max(1, their largest), bf16 ones by cosine >
+    0.9999."""
+    if dtype == torch.bfloat16:
+        return bf16_within_ulp(got[0], want[0]) and all(
+            cosine(a, b) > 0.9999 for a, b in zip(got[1:], want[1:]))
+    return all(_rel_err(a, b) <= 1e-4 for a, b in zip(got, want))
+
+
 def bench_rows(fn, shape, dtype, flush) -> dict:
-    """rms_fwd and ln_fwd (the control) at one row shape and dtype."""
+    """The norm and GELU kernels at one row shape and dtype, each checked
+    against its plain version and timed beside its library call: rms_fwd,
+    ln_fwd, ln_bwd (with and without dres), rms_bwd (with dres), gelu_fwd
+    and gelu_bwd (on [rows, 4 * d], the MLP's width). The library
+    backwards are autograd through ``F.layer_norm`` / ``F.rms_norm`` for
+    (x, weight(, bias)), which add no dres; ``layer_norm_bwd_dres_library``
+    is the same plus the dres add, the work ``ln_bwd`` does with dres."""
     F = torch.nn.functional
     name, rows, d = shape
     g = torch.Generator(device="cuda").manual_seed(rows + d)
     x = torch.randn(rows, d, device="cuda", generator=g).to(dtype)
     scale = 1 + 0.1 * torch.randn(d, device="cuda", generator=g)
     bias = 0.1 * torch.randn(d, device="cuda", generator=g)
+    dy = torch.randn(rows, d, device="cuda", generator=g).to(dtype)
+    dres = torch.randn(rows, d, device="cuda", generator=g).to(dtype)
+    xg = (2 * torch.randn(rows, 4 * d, device="cuda", generator=g)).to(dtype)
+    gg = torch.randn(rows, 4 * d, device="cuda", generator=g).to(dtype)
     w_l, b_l = scale.to(dtype), bias.to(dtype)
     (y, rstd), (y_r, rstd_r) = fn.rms_fwd(x, scale), fn.ref_rms_fwd(x, scale)
     (yl, mu, rs), (yl_r, mu_r, rs_r) = (fn.ln_fwd(x, scale, bias),
                                         fn.ref_ln_fwd(x, scale, bias))
     torch.cuda.synchronize()
     checks = {}
-    for oname, got, want in (("rms_y", y, y_r), ("ln_y", yl, yl_r)):
+    for oname, got, want in (("rms_y", y, y_r), ("ln_y", yl, yl_r),
+                             ("gelu_y", fn.gelu_fwd(xg), fn.ref_gelu(xg))):
         checks[f"{oname}_ok"] = (bf16_within_ulp(got, want)
                                  if dtype == torch.bfloat16
                                  else _rel_err(got, want) <= 1e-5)
     for oname, got, want in (("rms_rstd", rstd, rstd_r), ("ln_mu", mu, mu_r),
                              ("ln_rstd", rs, rs_r)):
         checks[f"{oname}_ok"] = _rel_err(got, want) <= 1e-5
+    for res, tag in ((None, ""), (dres, "_dres")):
+        checks[f"ln_bwd{tag}_ok"] = _bwd_ok(
+            fn.ln_bwd(x, mu_r, rs_r, scale, dy, res),
+            fn.ref_ln_bwd(x, mu_r, rs_r, scale, dy, res), dtype)
+    checks["rms_bwd_dres_ok"] = _bwd_ok(
+        fn.rms_bwd(x, rstd_r, scale, dy, dres),
+        fn.ref_rms_bwd(x, rstd_r, scale, dy, dres), dtype)
+    gelu_dx, gelu_dx_r = fn.gelu_bwd(xg, gg), fn.ref_gelu_bwd(xg, gg)
+    checks["gelu_bwd_ok"] = (bf16_within_ulp(gelu_dx, gelu_dx_r)
+                             if dtype == torch.bfloat16
+                             else _rel_err(gelu_dx, gelu_dx_r) <= 1e-4)
+
+    x_l = x.detach().requires_grad_(True)
+    w_g, b_g = (t.detach().requires_grad_(True) for t in (w_l, b_l))
+    yl_l = F.layer_norm(x_l, (d,), w_g, b_g, fn.LN_EPS)
+    yr_l = F.rms_norm(x_l, (d,), w_g, fn.RMS_EPS)
+
+    def ln_grad():
+        return torch.autograd.grad(yl_l, (x_l, w_g, b_g), dy,
+                                   retain_graph=True)
+
+    # The sum over ln_bwd's partial rows alone: the kernel the wrapper
+    # launches for it, where the tree has one, and torch.sum.
+    n_parts = -(-rows // fn._lib().rt_ln_bwd_rows_per_block())
+    parts = torch.randn(2, n_parts, d, device="cuda", generator=g)
     calls = {
         "rms_fwd": lambda: fn.rms_fwd(x, scale),
         "rms_norm_library": lambda: F.rms_norm(x, (d,), w_l, fn.RMS_EPS),
         "ln_fwd": lambda: fn.ln_fwd(x, scale, bias),
-        "layer_norm_library": lambda: F.layer_norm(x, (d,), w_l, b_l, 1e-5),
+        "layer_norm_library": lambda: F.layer_norm(x, (d,), w_l, b_l,
+                                                   fn.LN_EPS),
+        "ln_bwd": lambda: fn.ln_bwd(x, mu_r, rs_r, scale, dy),
+        "ln_bwd_dres": lambda: fn.ln_bwd(x, mu_r, rs_r, scale, dy, dres),
+        "torch_partials_sum": lambda: parts.sum(1),
+        "layer_norm_bwd_library": ln_grad,
+        "layer_norm_bwd_dres_library": lambda: ln_grad()[0] + dres,
+        "rms_bwd_dres": lambda: fn.rms_bwd(x, rstd_r, scale, dy, dres),
+        "rms_norm_bwd_library": lambda: torch.autograd.grad(
+            yr_l, (x_l, w_g), dy, retain_graph=True),
+        "gelu_fwd": lambda: fn.gelu_fwd(xg),
+        "gelu_library": lambda: F.gelu(xg, approximate="tanh"),
+        "gelu_bwd": lambda: fn.gelu_bwd(xg, gg),
+        "gelu_bwd_library": lambda: torch.ops.aten.gelu_backward(
+            gg, xg, approximate="tanh"),
     }
+    if hasattr(fn, "ln_bwd_sum"):
+        calls["ln_bwd_sum"] = lambda: fn.ln_bwd_sum(parts)
+        checks["ln_bwd_sum_ok"] = _rel_err(fn.ln_bwd_sum(parts),
+                                           parts.sum(1)) <= 1e-4
     return {"shape": name, "rows": rows, "d": d,
             "dtype": str(dtype).split(".")[-1], "ok": all(checks.values()),
             **checks, **{f"{k}_ms": device_ms(f, flush)
@@ -199,6 +270,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--rows-only", action="store_true",
+                    help="time the norm and GELU kernels only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_bench: needs a CUDA device", file=sys.stderr)
@@ -209,11 +282,13 @@ def main(argv=None) -> int:
     from ray_tpu_torch.ops import fused_norm as fn
 
     t0 = time.perf_counter()
-    _build.build(["flash_attention", "fused_norm"])
+    _build.build(["fused_norm"] if args.rows_only
+                 else ["flash_attention", "fused_norm"])
     build_s = time.perf_counter() - t0
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
     warm_clocks()
-    rows = [bench_shape(fa, s, flush) for s in SHAPES]
+    rows = [] if args.rows_only else [bench_shape(fa, s, flush)
+                                      for s in SHAPES]
     rows += [bench_rows(fn, s, dt, flush) for s in ROW_SHAPES
              for dt in (torch.bfloat16, torch.float32)]
     line = {"label": args.label, "root": args.root,

@@ -32,8 +32,9 @@ import torch
 CLASSES = (
     ("flash", ("flash_fwd_kernel", "flash_dkv_kernel", "flash_dq_kernel")),
     ("rms", ("rms_fwd_kernel", "rms_fwd_wide_kernel", "rms_bwd_kernel")),
-    ("fused_norm", ("ln_fwd_kernel", "ln_bwd_kernel", "gelu_fwd_kernel",
-                    "gelu_bwd_kernel")),
+    ("fused_norm", ("ln_fwd_kernel", "ln_fwd_wide_kernel", "ln_bwd_kernel",
+                    "ln_bwd_wide_kernel", "ln_bwd_sum_kernel",
+                    "gelu_fwd_kernel", "gelu_bwd_kernel")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("softmax", ("softmax",)),
     ("reduce", ("reduce",)),

@@ -3,8 +3,9 @@
 The same numpy inputs go through the JAX package's fused ops -- whose
 Pallas kernels run in interpret mode on the CPU, asserted through its
 KERNEL_INVOCATIONS -- and through the port's autograd Functions, which on
-CPU tensors run their kernels' plain versions. D=128 because the JAX side
-takes its Pallas path only when D % 128 == 0.
+CPU tensors run their kernels' plain versions. D=128 (and, for LayerNorm,
+GPT-2 small's 768 too) because the JAX side takes its Pallas path only
+when D % 128 == 0.
 
 Tolerances (fp32): forward rtol 1e-5, gradients rtol 1e-4. Both sides do
 the same fp32 arithmetic; only the order of the row and column sums
@@ -51,9 +52,8 @@ def _close(port, ref, rtol, name=""):
                                rtol=rtol, atol=rtol * 1e-1, err_msg=name)
 
 
-@pytest.mark.parametrize("residual", [False, True])
-def test_layer_norm_forward_matches_jax(residual):
-    x, scale, bias, _ = _data(0)
+def _layer_norm_forward_case(residual, d):
+    x, scale, bias, _ = _data(0, d=d)
     port_before = dict(tfn.KERNEL_INVOCATIONS)
     if residual:
         ref, ref_skip = _jax_moved("ln_fwd", lambda: jfn.fused_layer_norm_residual(
@@ -69,11 +69,8 @@ def test_layer_norm_forward_matches_jax(residual):
     assert dict(tfn.KERNEL_INVOCATIONS) == port_before
 
 
-@pytest.mark.parametrize("residual", [False, True])
-def test_layer_norm_gradients_match_jax(residual):
-    """dx, dscale, dbias -- and with ``residual`` the skip output's
-    cotangent, which must reach dx through the backward's dres."""
-    x, scale, bias, w = _data(1)
+def _layer_norm_gradients_case(residual, d):
+    x, scale, bias, w = _data(1, d=d)
 
     def jax_loss(x, s, b):
         if residual:
@@ -94,6 +91,31 @@ def test_layer_norm_gradients_match_jax(residual):
     for got, want, name in zip((xt.grad, st.grad, bt.grad), ref,
                                ("dx", "dscale", "dbias")):
         _close(got, want, 1e-4, name)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_layer_norm_forward_matches_jax(residual):
+    _layer_norm_forward_case(residual, D)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_layer_norm_gradients_match_jax(residual):
+    """dx, dscale, dbias -- and with ``residual`` the skip output's
+    cotangent, which must reach dx through the backward's dres."""
+    _layer_norm_gradients_case(residual, D)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_layer_norm_forward_matches_jax_at_gpt2_width(residual):
+    """GPT-2 small's D = 768, the width of the port's main path (the one
+    the one-warp LayerNorm kernels take on the card)."""
+    _layer_norm_forward_case(residual, 768)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_layer_norm_gradients_match_jax_at_gpt2_width(residual):
+    """dx, dscale and dbias at D = 768, residual and not."""
+    _layer_norm_gradients_case(residual, 768)
 
 
 def test_residual_cotangent_matches_the_plain_chain():

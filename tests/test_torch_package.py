@@ -162,33 +162,118 @@ def _check(got, want, fp32_tol):
         assert float((got - want).abs().max()) <= fp32_tol * scale
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(64, 768), (37, 100), (16, 8192)])
-def test_layer_norm_kernels_match_plain(cuda, dtype, rows, d):
-    g = torch.Generator(device=cuda).manual_seed(rows + d)
+def _ln_inputs(cuda, rows, d, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
     scale = 1 + 0.1 * torch.randn(d, device=cuda, generator=g)
     bias = 0.1 * torch.randn(d, device=cuda, generator=g)
     dy = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
     dres = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
-    before = fn.KERNEL_INVOCATIONS["ln_fwd"]
+    return x, scale, bias, dy, dres
+
+
+def _check_ln_bwd(got, want, dtype):
+    """dx within one bf16 ulp (fp32: 1e-4); dscale and dbias within 1e-4
+    in fp32, by cosine > 0.9999 in bf16."""
+    _check(got[0], want[0], 1e-4)
+    for a, b in zip(got[1:], want[1:]):
+        if dtype == torch.float32:
+            _check(a, b, 1e-4)
+        else:
+            assert float(torch.nn.functional.cosine_similarity(
+                a, b, dim=0)) > 0.9999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(64, 768), (37, 100), (16, 8192),
+                                    (37, 768), (37, 769), (64, 1024),
+                                    (64, 1025), (45, 768), (1000, 768)])
+def test_layer_norm_kernels_match_plain(cuda, dtype, rows, d):
+    """ln_fwd and ln_bwd (with and without dres) against their plain
+    versions: at GPT-2's width, at the one-warp kernels' limit (1024) and
+    just past it (769 is not read 16 bytes at a time, 1025 is wider than a
+    warp's row), at row counts that are not a multiple of ln_bwd's 32-row
+    block (37, 45, 1000), at an odd width and on the wide path (8192)."""
+    x, scale, bias, dy, dres = _ln_inputs(cuda, rows, d, dtype, rows + d)
+    before = dict(fn.KERNEL_INVOCATIONS)
     y, mu, rstd = fn.ln_fwd(x, scale, bias)
-    assert fn.KERNEL_INVOCATIONS["ln_fwd"] == before + 1
     y_ref, mu_ref, rstd_ref = fn.ref_ln_fwd(x, scale, bias)
     _check(y, y_ref, 1e-5)
     _check(mu, mu_ref, 1e-5)
     _check(rstd, rstd_ref, 1e-5)
     for res in (None, dres):
-        got = fn.ln_bwd(x, mu_ref, rstd_ref, scale, dy, res)
-        want = fn.ref_ln_bwd(x, mu_ref, rstd_ref, scale, dy, res)
-        _check(got[0], want[0], 1e-4)
-        for a, b in zip(got[1:], want[1:]):
-            if dtype == torch.float32:
-                _check(a, b, 1e-4)
-            else:
-                assert float(torch.nn.functional.cosine_similarity(
-                    a, b, dim=0)) > 0.9999
+        _check_ln_bwd(fn.ln_bwd(x, mu_ref, rstd_ref, scale, dy, res),
+                      fn.ref_ln_bwd(x, mu_ref, rstd_ref, scale, dy, res),
+                      dtype)
+    torch.cuda.synchronize()
+    assert fn.KERNEL_INVOCATIONS["ln_fwd"] == before.get("ln_fwd", 0) + 1
+    assert fn.KERNEL_INVOCATIONS["ln_bwd"] == before.get("ln_bwd", 0) + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [96, 768])
+def test_layer_norm_kernels_take_unaligned_rows(cuda, dtype, d):
+    """x, scale, bias, dy and dres one element past a 16-byte boundary:
+    the kernels read them an element at a time and match the plain
+    versions."""
+    rows = 21
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=cuda, dtype=t.dtype)
+        flat[1:] = t.flatten()
+        return flat[1:].view(t.shape)
+
+    x, scale, bias, dy, dres = (shifted(t) for t in _ln_inputs(
+        cuda, rows, d, dtype, d + 1))
+    assert all(t.data_ptr() % 16 for t in (x, scale, bias, dy, dres))
+    y, mu, rstd = fn.ln_fwd(x, scale, bias)
+    y_ref, mu_ref, rstd_ref = fn.ref_ln_fwd(x, scale, bias)
+    _check(y, y_ref, 1e-5)
+    _check(mu, mu_ref, 1e-5)
+    _check(rstd, rstd_ref, 1e-5)
+    _check_ln_bwd(fn.ln_bwd(x, mu_ref, rstd_ref, scale, dy, dres),
+                  fn.ref_ln_bwd(x, mu_ref, rstd_ref, scale, dy, dres), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(1000, 768), (100, 1025)])
+def test_ln_bwd_is_deterministic(cuda, dtype, rows, d):
+    """dx, dscale and dbias bitwise the same in two calls: the column sums
+    are added in a fixed order, with no atomics, on the one-warp path
+    (768) and the multi-warp one (1025)."""
+    x, scale, bias, dy, dres = _ln_inputs(cuda, rows, d, dtype, 3)
+    _, mu, rstd = fn.ref_ln_fwd(x, scale, bias)
+    first = fn.ln_bwd(x, mu, rstd, scale, dy, dres)
+    second = fn.ln_bwd(x, mu, rstd, scale, dy, dres)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [16, 40, 48])
+def test_rms_bwd_keeps_its_own_row_blocks(cuda, dtype, rows):
+    """rms_bwd's partials are sized by its own export (16 rows a block),
+    whatever ln_bwd's block is, and it still matches its plain version at
+    row counts that are and are not multiples of either block."""
+    assert fn._lib().rt_rms_bwd_rows_per_block() == 16
+    d = 1024
+    x, scale, _, dy, dres = _ln_inputs(cuda, rows, d, dtype, rows)
+    _, rstd = fn.ref_rms_fwd(x, scale)
+    for res in (None, dres):
+        dx, dscale = fn.rms_bwd(x, rstd, scale, dy, res)
+        dx_ref, dscale_ref = fn.ref_rms_bwd(x, rstd, scale, dy, res)
+        _check(dx, dx_ref, 1e-4)
+        if dtype == torch.float32:
+            _check(dscale, dscale_ref, 1e-4)
+        else:
+            assert float(torch.nn.functional.cosine_similarity(
+                dscale, dscale_ref, dim=0)) > 0.9999
     torch.cuda.synchronize()
 
 
