@@ -23,12 +23,16 @@ that fails:
      D = 1024) in bf16 and fp32; yardstick ``F.rms_norm`` and its autograd
      backward;
    - all six norm kernels at odd widths that exercise the masked tails,
-     the RMSNorm kernels at the widths around ``rms_fwd``'s one-warp
-     limit (1024: at it; 1025 and 1032: just past it, unaligned and
-     aligned) and at D = 1 and 31, and the LayerNorm and GELU kernels
-     around the LayerNorm kernels' one-warp rows (768 and 1024 at 37, 45
-     and 64 rows; 769 and 1025 past them); ``ln_bwd`` is also called
-     twice on the same inputs and must give the same bits;
+     the RMSNorm kernels at the widths around their one-warp limit (768
+     and 1024 at 37 and 45 rows, not a multiple of ``rms_bwd``'s row
+     block; 1025 and 1032: just past it, unaligned and aligned), at D = 1
+     and 31 and on views one element past a 16-byte boundary, and the
+     LayerNorm and GELU kernels around the LayerNorm kernels' one-warp
+     rows (768 and 1024 at 37, 45 and 64 rows; 769 and 1025 past them);
+     ``ln_bwd`` and ``rms_bwd`` are also called twice on the same inputs
+     and must give the same bits; ``gelu_bwd`` alone at lengths that are
+     not a multiple of a 16-byte pack, shorter than one CTA's span, and on
+     a view one element past a 16-byte boundary;
    - the flash kernels at the GPT-2-small shape (B=8, T=1024, H=12, D=64,
      bf16, causal, q/k/v strided views of one [B, T, 3*768] tensor, as the
      model passes them), at the Llama-small shape (B=4, T=2048, H=16,
@@ -87,7 +91,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-import re
 import shutil
 import subprocess
 import sys
@@ -96,7 +99,8 @@ from pathlib import Path
 
 from ray_tpu_torch.scripts.flash_bench import (bf16_within_ulp, cosine,
                                                device_ms, flash_inputs,
-                                               host_us, warm_clocks)
+                                               host_us, ptxas_report,
+                                               warm_clocks)
 
 OUT = Path(__file__).resolve().parent / "chip_smoke_out"
 SOURCES = {"fused_norm": "ray_tpu_torch/ops/csrc/fused_norm.cu",
@@ -151,10 +155,18 @@ FLASH_CASES = [(BATCH, SEQ, N_HEAD, 64, True), (1, 77, 2, 64, True),
     for causal in (True, False)]
 FLASH_LLAMA_CASE = (L_BATCH, L_SEQ, L_N_HEAD, 64, True)
 # (rows, d) of the norm checks at odd widths, all six kernels; then the
-# RMSNorm kernels alone around rms_fwd's one-warp rows (up to 1024 wide),
-# with 37 rows, not a multiple of the 8 rows of its CTA.
+# RMSNorm kernels alone around their one-warp rows (up to 1024 wide and
+# read 16 bytes at a time), with 37 and 45 rows, not a multiple of
+# rms_fwd's 8-row CTA or of rms_bwd's row block; then views one element
+# past a 16-byte boundary (the multi-warp rows, an element at a time).
 NORM_ODD_WIDTHS = ((37, 100), (64, 8192), (37, 2050))
-RMS_WARP_WIDTHS = ((37, 1), (37, 31), (37, 1024), (37, 1025), (37, 1032))
+RMS_WARP_WIDTHS = ((37, 1), (37, 31), (37, 1024), (45, 1024), (37, 768),
+                   (45, 768), (37, 1025), (37, 1032))
+RMS_UNALIGNED_WIDTHS = ((21, 96), (21, 1024))
+# gelu_bwd lengths: shorter than one CTA's span of 16-byte packs (100),
+# not a multiple of a pack (1001), whole CTAs plus a tail of elements
+# (8199, 98309); each also on a view one element past a 16-byte boundary.
+GELU_ODD_LENGTHS = (100, 1001, 8199, 3 * 8192 * 4 + 5)
 # The LayerNorm kernels around their one-warp rows (up to 1024 wide and
 # read 16 bytes at a time): 37 and 45 rows are not a multiple of ln_bwd's
 # 32-row block; 769 is not readable 16 bytes at a time, 1025 too wide.
@@ -284,15 +296,27 @@ def time_kernels(torch, fn, inp, spec, flush):
     return times
 
 
-def check_rms(torch, fn, rows, d, dtype, failures, seed):
+def _shifted(torch, t):
+    """A copy of ``t`` one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    flat[1:] = t.flatten()
+    return flat[1:].view(t.shape)
+
+
+def check_rms(torch, fn, rows, d, dtype, failures, seed, shift=False):
     """rms_fwd and rms_bwd (with and without dres) against their plain
-    versions; returns (errors by kernel, inputs) for timing."""
+    versions, rms_bwd twice for the same bits; with ``shift`` every input
+    one element past a 16-byte boundary. Returns (errors by kernel,
+    inputs) for timing."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(rows, d, device="cuda", generator=g).to(dtype)
     scale = 1 + 0.1 * torch.randn(d, device="cuda", generator=g)
     dy = torch.randn(rows, d, device="cuda", generator=g).to(dtype)
     dres = torch.randn(rows, d, device="cuda", generator=g).to(dtype)
-    tag = f"[{rows}x{d} {str(dtype).split('.')[-1]}]"
+    if shift:
+        x, scale, dy, dres = (_shifted(torch, t) for t in (x, scale, dy, dres))
+    tag = (f"[{rows}x{d} {str(dtype).split('.')[-1]}"
+           f"{' unaligned' if shift else ''}]")
     y, rstd = fn.rms_fwd(x, scale)
     y_r, rstd_r = fn.ref_rms_fwd(x, scale)
     errs = {"rms_fwd": max(
@@ -313,8 +337,25 @@ def check_rms(torch, fn, rows, d, dtype, failures, seed):
             if not c > 0.9999:
                 failures.append(f"rms_bwd dscale {case}: cosine {c}")
         errs["rms_bwd"] = max(errs["rms_bwd"], *e)
+        again = fn.rms_bwd(x, rstd_r, scale, dy, res)
+        if not (torch.equal(dx, again[0]) and torch.equal(dscale, again[1])):
+            failures.append(f"rms_bwd {case}: two calls differ")
     torch.cuda.synchronize()
     return errs, dict(x=x, scale=scale, dy=dy, dres=dres, rstd=rstd_r)
+
+
+def check_gelu_bwd(torch, fn, n, dtype, failures, seed):
+    """gelu_bwd alone against its plain version on n elements, aligned and
+    on views one element past a 16-byte boundary."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (2 * torch.randn(n + 1, device="cuda", generator=g)).to(dtype)
+    dy = torch.randn(n + 1, device="cuda", generator=g).to(dtype)
+    for shift in (0, 1):
+        xs, gs = x[shift:shift + n], dy[shift:shift + n]
+        compare(torch, f"gelu_bwd [n={n} {str(dtype).split('.')[-1]} "
+                f"shift {shift}]", fn.gelu_bwd(xs, gs),
+                fn.ref_gelu_bwd(xs, gs), 1e-4, failures)
+    torch.cuda.synchronize()
 
 
 def time_rms(torch, fn, inp, spec, flush):
@@ -322,7 +363,9 @@ def time_rms(torch, fn, inp, spec, flush):
     yardstick is ``F.rms_norm`` (weight in the input's dtype) and its
     autograd backward for (x, weight), which has no dres add. The bound
     counts each input read once and each output written once: rms_bwd's
-    dscale is [D]; the kernel's per-16-row partials are not counted."""
+    dscale is [D]; the partial rows it writes, one per block of
+    ``rt_rms_bwd_rows_per_block()`` = 64 rows, and reads back to sum them
+    are not counted."""
     F = torch.nn.functional
     x, scale, dy, dres, rstd = (inp[k] for k in ("x", "scale", "dy", "dres",
                                                  "rstd"))
@@ -528,55 +571,6 @@ def compare_paths(torch, loss_fn, params, tokens, paths):
     return report
 
 
-# Template arguments in a mangled kernel name: the I/O type, an int, a bool.
-_MANGLED_ARG = re.compile(r"13__nv_bfloat16|f|Li(\d+)E|Lb([01])E")
-_KERNEL = re.compile(r"((?:ln|rms|gelu|flash)_\w*?kernel)(?:I((?:13__nv_bfloat16"
-                     r"|f|Li\d+E|Lb[01]E)+)E)?")
-
-
-def _kernel_name(line):
-    """``ln_bwd_kernel<bf16,8,3>`` (``ln_bwd_sum_kernel``: no template) for
-    a line naming a mangled kernel of either source, else None."""
-    m = _KERNEL.search(line)
-    if not m:
-        return None
-    if m.group(2) is None:
-        return m.group(1)
-    args = []
-    for a in _MANGLED_ARG.finditer(m.group(2)):
-        args.append({"13__nv_bfloat16": "bf16", "f": "f32"}.get(
-            a.group(0), a.group(1) or a.group(2)))
-    return f"{m.group(1)}<{','.join(args)}>"
-
-
-def ptxas_report(log_texts, fa):
-    """{kernel<args>: registers, spill bytes, static and dynamic shared
-    memory and ptxas's performance notes} for every kernel of both sources
-    (``-Xptxas -v`` logs the build keeps); a flash kernel's dynamic shared
-    memory is what its launcher requests (ptxas sees only static shared
-    memory), the norm kernels take none."""
-    report, cur = {}, None
-    for line in "\n".join(log_texts).splitlines():
-        name = _kernel_name(line)
-        if "Compiling entry function" in line and name:
-            cur = name
-            m = re.match(r"(flash_(?:fwd|dkv|dq))_kernel<(\d+)>", name)
-            report.setdefault(cur, {"notes": []})["dynamic_smem"] = (
-                fa.smem_bytes(m.group(1), int(m.group(2))) if m else 0)
-        elif name and re.search(r"\(C\d+\)", line):
-            code = re.search(r"\((C\d+)\)", line).group(1)
-            report.setdefault(name, {"notes": []})["notes"].append(code)
-        elif cur and "spill stores" in line:
-            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
-            report[cur].update(spill_stores=int(st), spill_loads=int(ld))
-        elif cur and "Used" in line and "registers" in line:
-            report[cur]["registers"] = int(
-                re.search(r"Used (\d+) registers", line).group(1))
-            sm = re.search(r"(\d+) bytes smem", line)
-            report[cur]["static_smem"] = int(sm.group(1)) if sm else 0
-    return report
-
-
 # -- main ----------------------------------------------------------------------
 
 
@@ -660,6 +654,13 @@ def main() -> int:
     for rows, d in RMS_WARP_WIDTHS:
         for dtype in (torch.bfloat16, torch.float32):
             check_rms(torch, fn, rows, d, dtype, failures, rows + d + 1)
+    for rows, d in RMS_UNALIGNED_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            check_rms(torch, fn, rows, d, dtype, failures, rows + d + 2,
+                      shift=True)
+    for n in GELU_ODD_LENGTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            check_gelu_bwd(torch, fn, n, dtype, failures, n)
     for rows, d in LN_WARP_WIDTHS:
         for dtype in (torch.bfloat16, torch.float32):
             check_kernels(torch, fn, rows, d, dtype, failures, rows + d)

@@ -35,23 +35,29 @@ constexpr int kMaxRowThreads = 512;
 constexpr int kMaxD = kElems * kMaxRowThreads;
 // Threads a row kernel's CTA aims for: narrow rows share a CTA.
 constexpr int kCtaThreads = 256;
-// One-warp rows (rms_fwd, ln_fwd, ln_bwd): a lane holds up to kLaneElems
-// elements, so a warp takes rows up to kWarpMaxD wide; the forward kernels
-// put kWarpRows rows (warps) in a CTA.
+// One-warp rows (rms_fwd, ln_fwd, ln_bwd, rms_bwd): a lane holds up to
+// kLaneElems elements, so a warp takes rows up to kWarpMaxD wide; the
+// forward kernels put kWarpRows rows (warps) in a CTA.
 constexpr int kLaneElems = 32;
 constexpr int kWarpMaxD = 32 * kLaneElems;
 constexpr int kWarpRows = 8;
 // Rows whose column partials one backward CTA sums into its partial row
 // (one [D] fp32 row of dscale, and for LayerNorm one of dbias): ln_bwd's
-// kLnBwdWarps warps walk a block of kLnBwdRows rows; rms_bwd keeps its own
-// block of kRmsBwdRows. Both are multiples of every rows-per-CTA that the
-// multi-warp body's launcher picks (1, 2, 4 or 8).
+// kLnBwdWarps warps walk a block of kLnBwdRows rows, rms_bwd's kRmsBwdWarps
+// warps a block of kRmsBwdRows. Both blocks are multiples of every
+// rows-per-CTA that the multi-warp body's launcher picks (1, 2, 4 or 8).
+// Each is the fastest of 16, 32 or 64 rows with 4 or 8 warps at its main
+// path's width on an H100 (PERF.md): for rms_bwd at D = 1024, 128 CTAs of
+// 8 warps, one an SM at its 164 registers a lane.
 constexpr int kLnBwdRows = 32;
 constexpr int kLnBwdWarps = 4;
-constexpr int kRmsBwdRows = 16;
-// ln_bwd_sum's row groups: a CTA sums 32 columns of the partial rows with
+constexpr int kRmsBwdRows = 64;
+constexpr int kRmsBwdWarps = 8;
+// norm_bwd_sum's row groups: a CTA sums 32 columns of the partial rows with
 // kSumGroups warps, each over every kSumGroups-th row.
 constexpr int kSumGroups = 16;
+// gelu_bwd: threads a CTA, each owning one 16-byte pack.
+constexpr int kGeluThreads = 128;
 
 constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2 / pi)
 constexpr float kGeluA = 0.044715f;
@@ -373,10 +379,10 @@ __global__ void __launch_bounds__(kWarpRows * 32)
 }
 
 // ---------------------------------------------------------------------------
-// The multi-warp row body of the backward: rms_bwd (RMS = true) at every
-// width, and ln_bwd (ln_bwd_wide_kernel) for rows wider than kWarpMaxD or
-// not readable 16 bytes at a time; ln_bwd's other rows take the one-warp
-// kernel below. Two phases inside one kernel:
+// The multi-warp row body of the backward: ln_bwd (ln_bwd_wide_kernel) and
+// rms_bwd (rms_bwd_wide_kernel, RMS = true) for rows wider than kWarpMaxD
+// or not readable 16 bytes at a time; their other rows take the one-warp
+// body below. Two phases inside one kernel:
 //
 // (a) Per row, x-hat is rebuilt from the saved fp32 mu and rstd; the two row
 //     reductions c1 = mean(dy*scale) and c2 = mean(dy*scale*x-hat) give
@@ -388,8 +394,8 @@ __global__ void __launch_bounds__(kWarpRows * 32)
 //     in every row it visits, so it sums dy*x-hat and dy for them in registers;
 //     the CTA's row groups are then added in a fixed order through shared
 //     memory and written as one [D] fp32 partial row for dscale and one for
-//     dbias. The caller sums the [n_blocks, D] partials. No atomics: the result
-//     is the same on every run.
+//     dbias. norm_bwd_sum adds the [n_blocks, D] partials. No atomics: the
+//     result is the same on every run.
 // Bound: bytes, 4*R*D*sizeof(T) with dres (3 reads, 1 write) + 8*R + partials
 // (RMS: 4*R and one partial row per CTA).
 // ---------------------------------------------------------------------------
@@ -524,37 +530,41 @@ __global__ void __launch_bounds__(kMaxRowThreads)
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kMaxRowThreads)
-    rms_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mean,
-                   const float* __restrict__ rstd,
-                   const float* __restrict__ scale, const T* __restrict__ dy,
-                   const T* __restrict__ dres, T* __restrict__ dx,
-                   float* __restrict__ dscale_part,
-                   float* __restrict__ dbias_part, int rows, int d) {
+    rms_bwd_wide_kernel(const T* __restrict__ x,
+                        const float* __restrict__ mean,
+                        const float* __restrict__ rstd,
+                        const float* __restrict__ scale,
+                        const T* __restrict__ dy, const T* __restrict__ dres,
+                        T* __restrict__ dx, float* __restrict__ dscale_part,
+                        float* __restrict__ dbias_part, int rows, int d) {
   norm_bwd<T, VEC, true, kRmsBwdRows>(x, mean, rstd, scale, dy, dres, dx,
                                       dscale_part, dbias_part, rows, d);
 }
 
 // ---------------------------------------------------------------------------
-// ln_bwd: replaces the LayerNorm variant of _norm_bwd_kernel
-// (ray_tpu/ops/fused_norm.py:184) for rows up to kWarpMaxD wide whose
-// pointers allow 16-byte loads (GPT-2 small's 768 included).
+// ln_bwd and rms_bwd: replace the LayerNorm and the RMSNorm variants of
+// _norm_bwd_kernel (ray_tpu/ops/fused_norm.py:184) for rows up to kWarpMaxD
+// wide whose pointers allow 16-byte loads (GPT-2 small's 768 and Llama
+// small's 1024 included). One body, warp_norm_bwd, with two entry points
+// (ln_bwd_kernel, rms_bwd_kernel) so that a profile names them apart.
 //
-// One warp a row, kLnBwdWarps warps a CTA, and each warp walks every
-// kLnBwdWarps-th row of its CTA's block of kLnBwdRows rows. A lane owns the
-// same NV chunks of VEC columns in every row (NV picked from the width, as
-// in ln_fwd), so it holds its scale values and its dscale (sum of dy*x-hat)
-// and dbias (sum of dy) column sums in fp32 registers across the rows.
-// Per row, every load (x, dy, dres, mu, rstd) is issued before the row's
-// reductions, into packed 16-byte vectors that are widened to fp32 where
-// they are used. c1 = mean(dy*scale) and c2 = mean(dy*scale*x-hat) are two
-// warp-shuffle sums -- no shared memory and no barrier -- and
-// dx = rstd*(dy*scale - c1 - x-hat*c2) (+ dres).
+// One warp a row, WARPS warps a CTA, and each warp walks every WARPS-th row
+// of its CTA's block of ROWS rows. A lane owns the same NV chunks of VEC
+// columns in every row (NV picked from the width, as in ln_fwd), so it
+// holds its scale values and its dscale (sum of dy*x-hat) column sums -- and
+// for LayerNorm its dbias (sum of dy) ones -- in fp32 registers across the
+// rows. Per row, every load (x, dy, dres, mu, rstd) is issued before the
+// row's reductions, into packed 16-byte vectors that are widened to fp32
+// where they are used. c2 = mean(dy*scale*x-hat), and for LayerNorm
+// c1 = mean(dy*scale), are warp-shuffle sums -- no shared memory and no
+// barrier -- and dx = rstd*(dy*scale - c1 - x-hat*c2) (+ dres); RMS reads
+// no mu, x-hat = x*rstd and c1 = 0.
 // At the end the CTA's warps add their column sums in warp order through
-// shared memory and write one [D] fp32 partial row each of dscale and dbias;
-// ln_bwd_sum then adds the [n_blocks, D] partials. No atomics: the same
-// result on every run.
+// shared memory and write one [D] fp32 partial row each of dscale (and
+// dbias); norm_bwd_sum then adds the [n_blocks, D] partials. No atomics:
+// the same result on every run.
 // Bound: bytes, 4*R*D*sizeof(T) with dres (3 reads, 1 write) + 8*R + 4*D +
-// 8*D per partial row.
+// 8*D per partial row (RMS: 4*R, and 4*D per partial row).
 // ---------------------------------------------------------------------------
 
 // An empty asm that claims to rewrite every 32-bit word of p: what the
@@ -566,20 +576,19 @@ __device__ __forceinline__ void opaque(P& p) {
   for (int i = 0; i < (int)(sizeof(P) / 4); ++i) asm volatile("" : "+r"(w[i]));
 }
 
-template <typename T, int VEC, int NV>
-__global__ void __launch_bounds__(kLnBwdWarps * 32)
-    ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mean,
-                  const float* __restrict__ rstd,
-                  const float* __restrict__ scale, const T* __restrict__ dy,
-                  const T* __restrict__ dres, T* __restrict__ dx,
-                  float* __restrict__ dscale_part,
-                  float* __restrict__ dbias_part, int rows, int d) {
+template <typename T, int VEC, int NV, bool RMS, int ROWS, int WARPS>
+__device__ __forceinline__ void warp_norm_bwd(
+    const T* __restrict__ x, const float* __restrict__ mean,
+    const float* __restrict__ rstd, const float* __restrict__ scale,
+    const T* __restrict__ dy, const T* __restrict__ dres, T* __restrict__ dx,
+    float* __restrict__ dscale_part, float* __restrict__ dbias_part, int rows,
+    int d) {
   using P = Pack<T, VEC>;
-  __shared__ float comb[kLnBwdWarps * kWarpMaxD];
+  __shared__ float comb[WARPS * kWarpMaxD];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  float sc[NV][VEC], acc_s[NV][VEC], acc_b[NV][VEC];
+  float sc[NV][VEC], acc_s[NV][VEC], acc_b[RMS ? 1 : NV][VEC];
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     const int c = (k * 32 + lane) * VEC;
@@ -590,14 +599,16 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32)
       for (int j = 0; j < VEC; ++j) sc[k][j] = 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) acc_s[k][j] = acc_b[k][j] = 0.f;
+    for (int j = 0; j < VEC; ++j) {
+      acc_s[k][j] = 0.f;
+      if constexpr (!RMS) acc_b[k][j] = 0.f;
+    }
   }
 
-  const int end = min(rows, (int)(blockIdx.x + 1) * kLnBwdRows);
-  for (int row = blockIdx.x * kLnBwdRows + warp; row < end;
-       row += kLnBwdWarps) {
+  const int end = min(rows, (int)(blockIdx.x + 1) * ROWS);
+  for (int row = blockIdx.x * ROWS + warp; row < end; row += WARPS) {
     const size_t off = (size_t)row * d;
-    const float mu = mean[row];
+    const float mu = RMS ? 0.f : mean[row];
     const float rs = rstd[row];
     P xp[NV], gp[NV], rp[NV];
 #pragma unroll
@@ -609,6 +620,13 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32)
         if (dres != nullptr) rp[k] = *reinterpret_cast<const P*>(dres + off + c);
       }
     }
+    // x-hat of one element of the packed row.
+    auto xhat = [&](const P& p, int j) {
+      if constexpr (RMS)
+        return to_f(p.v[j]) * rs;
+      else
+        return (to_f(p.v[j]) - mu) * rs;
+    };
 
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
@@ -616,21 +634,21 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32)
       if ((k * 32 + lane) * VEC < d) {
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
-          const float xh = (to_f(xp[k].v[j]) - mu) * rs;
+          const float xh = xhat(xp[k], j);
           const float g = to_f(gp[k].v[j]);
           const float dxh = g * sc[k][j];
-          s1 += dxh;
+          if constexpr (!RMS) s1 += dxh;
           s2 += dxh * xh;
           acc_s[k][j] += g * xh;
-          acc_b[k][j] += g;
+          if constexpr (!RMS) acc_b[k][j] += g;
         }
       }
     }
-    const float c1 = warp_sum(s1) / d;
+    const float c1 = RMS ? 0.f : warp_sum(s1) / d;
     const float c2 = warp_sum(s2) / d;
     // Widen x and dy again below instead of holding x-hat and dy*scale in
-    // fp32 registers across the two reductions: fewer live registers (160
-    // against 188 at D = 768 bf16) and a faster kernel (PERF.md).
+    // fp32 registers across the reductions: fewer live registers (160
+    // against 188 for ln_bwd at D = 768 bf16) and a faster kernel (PERF.md).
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
       opaque(xp[k]);
@@ -644,10 +662,13 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32)
         float o[VEC];
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
-          const float xh = (to_f(xp[k].v[j]) - mu) * rs;
+          const float xh = xhat(xp[k], j);
           const float g = to_f(gp[k].v[j]);
           o[j] = dres != nullptr ? to_f(rp[k].v[j]) : 0.f;
-          o[j] += rs * (g * sc[k][j] - c1 - xh * c2);
+          if constexpr (RMS)
+            o[j] += rs * (g * sc[k][j] - xh * c2);
+          else
+            o[j] += rs * (g * sc[k][j] - c1 - xh * c2);
         }
         store<T, VEC>(dx + off + c, o);
       }
@@ -666,31 +687,54 @@ __global__ void __launch_bounds__(kLnBwdWarps * 32)
     }
     __syncthreads();
     part += (size_t)blockIdx.x * d;
-    for (int c = threadIdx.x; c < d; c += kLnBwdWarps * 32) {
+    for (int c = threadIdx.x; c < d; c += WARPS * 32) {
       float s = comb[c];
 #pragma unroll
-      for (int w = 1; w < kLnBwdWarps; ++w) s += comb[w * d + c];
+      for (int w = 1; w < WARPS; ++w) s += comb[w * d + c];
       part[c] = s;
     }
     __syncthreads();  // the readers are done before comb is written again
   };
   fold(acc_s, dscale_part);
-  fold(acc_b, dbias_part);
+  if constexpr (!RMS) fold(acc_b, dbias_part);
+}
+
+template <typename T, int VEC, int NV>
+__global__ void __launch_bounds__(kLnBwdWarps * 32)
+    ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                  const float* __restrict__ rstd,
+                  const float* __restrict__ scale, const T* __restrict__ dy,
+                  const T* __restrict__ dres, T* __restrict__ dx,
+                  float* __restrict__ dscale_part,
+                  float* __restrict__ dbias_part, int rows, int d) {
+  warp_norm_bwd<T, VEC, NV, false, kLnBwdRows, kLnBwdWarps>(
+      x, mean, rstd, scale, dy, dres, dx, dscale_part, dbias_part, rows, d);
+}
+
+template <typename T, int VEC, int NV>
+__global__ void __launch_bounds__(kRmsBwdWarps * 32)
+    rms_bwd_kernel(const T* __restrict__ x, const float* __restrict__ rstd,
+                   const float* __restrict__ scale, const T* __restrict__ dy,
+                   const T* __restrict__ dres, T* __restrict__ dx,
+                   float* __restrict__ dscale_part, int rows, int d) {
+  warp_norm_bwd<T, VEC, NV, true, kRmsBwdRows, kRmsBwdWarps>(
+      x, nullptr, rstd, scale, dy, dres, dx, dscale_part, nullptr, rows, d);
 }
 
 // ---------------------------------------------------------------------------
-// ln_bwd_sum: the column sums of ln_bwd's partial rows, out[a][c] = sum over
-// the n rows r of parts[a][r][c] for a = 0 (dscale) and 1 (dbias), taken
-// outside the row kernel as the reference takes its partials' sum outside
-// its Pallas kernel. A CTA owns 32 columns of one of the two: warp g adds
+// norm_bwd_sum: the column sums of a backward's k partial arrays,
+// out[a][c] = sum over the n rows r of parts[a][r][c] -- ln_bwd's dscale
+// and dbias (k = 2), rms_bwd's dscale (k = 1) -- taken outside the row
+// kernel as the reference takes its partials' sum outside its Pallas
+// kernel. A CTA owns 32 columns of one array (blockIdx.y): warp g adds
 // rows g, g + kSumGroups, ... in order, and warp 0 adds the kSumGroups
 // sums in order, so the result is the same on every run. The partials were
 // just written and come from L2; torch.sum over the middle axis of the
-// same [2, n, D] tensor took 2-3x as long.
+// same [k, n, D] tensor took 2-3x as long.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kSumGroups * 32)
-    ln_bwd_sum_kernel(const float* __restrict__ parts, int n, int d,
-                      float* __restrict__ out) {
+    norm_bwd_sum_kernel(const float* __restrict__ parts, int n, int d,
+                        float* __restrict__ out) {
   __shared__ float red[kSumGroups][32];
   const int lane = threadIdx.x & 31;
   const int grp = threadIdx.x >> 5;
@@ -712,10 +756,8 @@ __global__ void __launch_bounds__(kSumGroups * 32)
 
 // ---------------------------------------------------------------------------
 // gelu_fwd / gelu_bwd: replace _gelu_fwd_kernel and _gelu_bwd_kernel
-// (ray_tpu/ops/fused_norm.py:278, :284). Grid-stride elementwise passes over
-// VEC-element packs (16 bytes when the length and the pointers allow it). The
-// backward recomputes tanh from the saved pre-activation instead of reading a
-// saved fp32 tanh.
+// (ray_tpu/ops/fused_norm.py:278, :284). The backward recomputes tanh from
+// the saved pre-activation instead of reading a saved fp32 tanh.
 // Bound: bytes, 2*n*sizeof(T) forward, 3*n*sizeof(T) backward.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ float gelu_f(float x) {
@@ -723,12 +765,20 @@ __device__ __forceinline__ float gelu_f(float x) {
   return 0.5f * x * (1.f + t);
 }
 
+// tanh(u) as 1 - 2 / (1 + e^(2u)) with the fast exp and division: an
+// absolute error of the order of fp32's 6e-8 near 1 (an overflowing
+// e^(2u) gives 1 exactly), which the fp32 check (1e-4) and the bf16 one
+// (one ulp) hold, and 1 us faster than tanhf in gelu_bwd at [8192, 3072]
+// bf16 on an H100 (PERF.md). gelu_f keeps tanhf.
 __device__ __forceinline__ float gelu_grad_f(float x) {
-  const float t = tanhf(kGeluC * (x + kGeluA * x * x * x));
+  const float u = kGeluC * (x + kGeluA * x * x * x);
+  const float t = 1.f - __fdividef(2.f, 1.f + __expf(2.f * u));
   const float du = kGeluC * (1.f + 3.f * kGeluA * x * x);
   return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * du;
 }
 
+// gelu_fwd: a grid-stride pass over VEC-element packs (16 bytes when the
+// length and the pointers allow it).
 template <typename T, int VEC>
 __global__ void gelu_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
                                 int64_t n_vec) {
@@ -743,20 +793,32 @@ __global__ void gelu_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
   }
 }
 
+// gelu_bwd: one pass, with a grid that covers the n_vec = n / VEC packs
+// once, one pack a thread, x and g loaded before any arithmetic. The
+// threads past the last pack take the n % VEC elements after it, one
+// each. The geometry is the fastest of those timed (PERF.md): one pack a
+// thread and 128 threads a CTA beat 2 or 4 packs a thread, 64 to 512
+// threads, the grid-stride loop it replaces, and evict-first
+// (ld/st.global.cs) or read-only (ld.global.nc) loads.
 template <typename T, int VEC>
-__global__ void gelu_bwd_kernel(const T* __restrict__ x,
-                                const T* __restrict__ g, T* __restrict__ dx,
-                                int64_t n_vec) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_vec;
-       i += stride) {
-    float v[VEC], gv[VEC];
-    load<T, VEC>(x + i * VEC, v);
-    load<T, VEC>(g + i * VEC, gv);
+__global__ void __launch_bounds__(kGeluThreads)
+    gelu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                    T* __restrict__ dx, int64_t n) {
+  using P = Pack<T, VEC>;
+  const int64_t n_vec = n / VEC;
+  const int64_t i = (int64_t)blockIdx.x * kGeluThreads + threadIdx.x;
+  if (i < n_vec) {
+    const P xv = reinterpret_cast<const P*>(x)[i];
+    const P gv = reinterpret_cast<const P*>(g)[i];
+    P o;
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) v[j] = gv[j] * gelu_grad_f(v[j]);
-    store<T, VEC>(dx + i * VEC, v);
+    for (int j = 0; j < VEC; ++j)
+      o.v[j] = from_f<T>(to_f(gv.v[j]) * gelu_grad_f(to_f(xv.v[j])));
+    reinterpret_cast<P*>(dx)[i] = o;
+    return;
   }
+  const int64_t e = n_vec * VEC + (i - n_vec);
+  if (e < n) dx[e] = from_f<T>(to_f(g[e]) * gelu_grad_f(to_f(x[e])));
 }
 
 // ---------------------------------------------------------------------------
@@ -876,8 +938,8 @@ cudaError_t rms_fwd_launch(const void* x, const void* scale, void* y,
   return cudaGetLastError();
 }
 
-// The multi-warp backward rows: rms_bwd at every width; ln_bwd for rows
-// wider than kWarpMaxD or not readable 16 bytes at a time.
+// The multi-warp backward rows: rows wider than kWarpMaxD or not readable
+// 16 bytes at a time.
 template <typename T, bool RMS>
 cudaError_t norm_bwd_wide_launch(const void* x, const void* mean,
                                  const void* rstd, const void* scale,
@@ -900,9 +962,9 @@ cudaError_t norm_bwd_wide_launch(const void* x, const void* mean,
   };
   if constexpr (RMS) {
     if (vec)
-      args(rms_bwd_kernel<T, V>);
+      args(rms_bwd_wide_kernel<T, V>);
     else
-      args(rms_bwd_kernel<T, 1>);
+      args(rms_bwd_wide_kernel<T, 1>);
   } else {
     if (vec)
       args(ln_bwd_wide_kernel<T, V>);
@@ -912,20 +974,28 @@ cudaError_t norm_bwd_wide_launch(const void* x, const void* mean,
   return cudaGetLastError();
 }
 
-// ln_bwd: one warp a row up to kWarpMaxD where every row pointer allows
-// 16-byte loads, the multi-warp rows otherwise.
+// True where the one-warp backward takes the rows: up to kWarpMaxD wide,
+// with every row pointer and scale readable 16 bytes at a time.
+template <typename T>
+bool warp_bwd_rows(int d, const void* x, const void* scale, const void* dy,
+                   const void* dres, const void* dx) {
+  constexpr int V = 16 / sizeof(T);
+  return d <= kWarpMaxD && d % V == 0 && aligned16(x) && aligned16(dy) &&
+         aligned16(dres) && aligned16(dx) && aligned16(scale);
+}
+
+// ln_bwd: one warp a row where warp_bwd_rows allows, the multi-warp rows
+// otherwise.
 template <typename T>
 cudaError_t ln_bwd_launch(const void* x, const void* mean, const void* rstd,
                           const void* scale, const void* dy, const void* dres,
                           void* dx, void* dscale_part, void* dbias_part,
                           int rows, int d, cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
-  const bool vec = d % V == 0 && aligned16(x) && aligned16(dy) &&
-                   aligned16(dres) && aligned16(dx) && aligned16(scale);
-  if (!vec || d > kWarpMaxD)
+  if (!warp_bwd_rows<T>(d, x, scale, dy, dres, dx))
     return norm_bwd_wide_launch<T, false>(x, mean, rstd, scale, dy, dres, dx,
                                           dscale_part, dbias_part, rows, d,
                                           stream);
+  constexpr int V = 16 / sizeof(T);
   const int grid = (rows + kLnBwdRows - 1) / kLnBwdRows;
   with_nv<kLaneElems / V>((d / V + 31) / 32, [&](auto nv) {
     ln_bwd_kernel<T, V, decltype(nv)::value>
@@ -939,38 +1009,85 @@ cudaError_t ln_bwd_launch(const void* x, const void* mean, const void* rstd,
   return cudaGetLastError();
 }
 
+// rms_bwd: one warp a row where warp_bwd_rows allows, the multi-warp rows
+// otherwise; both write one partial row per kRmsBwdRows rows.
+template <typename T>
+cudaError_t rms_bwd_launch(const void* x, const void* rstd, const void* scale,
+                           const void* dy, const void* dres, void* dx,
+                           void* dscale_part, int rows, int d,
+                           cudaStream_t stream) {
+  if (!warp_bwd_rows<T>(d, x, scale, dy, dres, dx))
+    return norm_bwd_wide_launch<T, true>(x, nullptr, rstd, scale, dy, dres,
+                                         dx, dscale_part, nullptr, rows, d,
+                                         stream);
+  constexpr int V = 16 / sizeof(T);
+  const int grid = (rows + kRmsBwdRows - 1) / kRmsBwdRows;
+  with_nv<kLaneElems / V>((d / V + 31) / 32, [&](auto nv) {
+    rms_bwd_kernel<T, V, decltype(nv)::value>
+        <<<grid, kRmsBwdWarps * 32, 0, stream>>>(
+            static_cast<const T*>(x), static_cast<const float*>(rstd),
+            static_cast<const float*>(scale), static_cast<const T*>(dy),
+            static_cast<const T*>(dres), static_cast<T*>(dx),
+            static_cast<float*>(dscale_part), rows, d);
+  });
+  return cudaGetLastError();
+}
+
+// The device's SM count, read once a process (at the first GELU forward).
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return sms;
+}
+
 int elementwise_grid(int64_t n_vec, int threads) {
-  int sms = 132;
-  int dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int64_t want = (n_vec + threads - 1) / threads;
-  const int64_t cap = (int64_t)sms * 16;
+  const int64_t cap = (int64_t)sm_count() * 16;
   return (int)(want < cap ? want : cap);
 }
 
 template <typename T>
-cudaError_t gelu_launch(const void* x, const void* g, void* out, int64_t n,
-                        cudaStream_t stream) {
+cudaError_t gelu_fwd_launch(const void* x, void* y, int64_t n,
+                            cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   constexpr int kThreads = 256;
-  const bool vec = n % V == 0 && aligned16(x) && aligned16(g) && aligned16(out);
+  const bool vec = n % V == 0 && aligned16(x) && aligned16(y);
   const int64_t n_vec = vec ? n / V : n;
   const int grid = elementwise_grid(n_vec, kThreads);
   const T* xs = static_cast<const T*>(x);
+  T* ys = static_cast<T*>(y);
+  if (vec)
+    gelu_fwd_kernel<T, V><<<grid, kThreads, 0, stream>>>(xs, ys, n_vec);
+  else
+    gelu_fwd_kernel<T, 1><<<grid, kThreads, 0, stream>>>(xs, ys, n_vec);
+  return cudaGetLastError();
+}
+
+// gelu_bwd: 16-byte packs where all three pointers allow it, whatever the
+// length (the threads past the last whole pack take the elements after
+// it); one element a pack otherwise.
+template <typename T>
+cudaError_t gelu_bwd_launch(const void* x, const void* g, void* dx, int64_t n,
+                            cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = aligned16(x) && aligned16(g) && aligned16(dx);
+  // Threads: one a pack, then one for each element past the last pack.
+  const int64_t threads = vec ? n / V + n % V : n;
+  const int64_t grid = (threads + kGeluThreads - 1) / kGeluThreads;
+  if (grid > INT32_MAX) return cudaErrorInvalidValue;
+  const T* xs = static_cast<const T*>(x);
   const T* gs = static_cast<const T*>(g);
-  T* os = static_cast<T*>(out);
-  if (g == nullptr) {
-    if (vec)
-      gelu_fwd_kernel<T, V><<<grid, kThreads, 0, stream>>>(xs, os, n_vec);
-    else
-      gelu_fwd_kernel<T, 1><<<grid, kThreads, 0, stream>>>(xs, os, n_vec);
-  } else {
-    if (vec)
-      gelu_bwd_kernel<T, V><<<grid, kThreads, 0, stream>>>(xs, gs, os, n_vec);
-    else
-      gelu_bwd_kernel<T, 1><<<grid, kThreads, 0, stream>>>(xs, gs, os, n_vec);
-  }
+  T* os = static_cast<T*>(dx);
+  if (vec)
+    gelu_bwd_kernel<T, V><<<(unsigned)grid, kGeluThreads, 0, stream>>>(
+        xs, gs, os, n);
+  else
+    gelu_bwd_kernel<T, 1><<<(unsigned)grid, kGeluThreads, 0, stream>>>(
+        xs, gs, os, n);
   return cudaGetLastError();
 }
 
@@ -979,10 +1096,11 @@ cudaError_t gelu_launch(const void* x, const void* g, void* out, int64_t n,
 // ---------------------------------------------------------------------------
 // C interface. dtype: 0 = float32, 1 = bfloat16. Scale, bias, mean, rstd and
 // the partials are always float32. A zero-size call launches nothing. The
-// LayerNorm and RMSNorm entry points share the one-warp forward body and
-// the multi-warp row bodies (RMS template flag) and the rt_ln_max_d limit;
-// each backward exports the rows per partial row it writes
-// (rt_ln_bwd_rows_per_block, rt_rms_bwd_rows_per_block).
+// LayerNorm and RMSNorm entry points share the one-warp bodies, the
+// multi-warp row bodies (RMS template flag), the partials' sum
+// (rt_norm_bwd_sum) and the rt_ln_max_d limit; each backward exports the
+// rows per partial row it writes (rt_ln_bwd_rows_per_block,
+// rt_rms_bwd_rows_per_block).
 // ---------------------------------------------------------------------------
 extern "C" {
 
@@ -1023,13 +1141,14 @@ cudaError_t rt_ln_bwd(const void* x, const void* mean, const void* rstd,
   return cudaErrorInvalidValue;
 }
 
-// parts [2, n, d] (ln_bwd's dscale and dbias partial rows) -> out [2, d].
-cudaError_t rt_ln_bwd_sum(const void* parts, int n, int d, void* out,
-                          void* stream) {
-  if (n < 1 || d < 1) return cudaErrorInvalidValue;
-  const dim3 grid((d + 31) / 32, 2);
-  ln_bwd_sum_kernel<<<grid, kSumGroups * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+// parts [k, n, d] (ln_bwd's dscale and dbias partial rows, k = 2; rms_bwd's
+// dscale ones, k = 1) -> out [k, d].
+cudaError_t rt_norm_bwd_sum(const void* parts, int k, int n, int d, void* out,
+                            void* stream) {
+  if (k < 1 || k > 65535 || n < 1 || d < 1) return cudaErrorInvalidValue;
+  const dim3 grid((d + 31) / 32, k);
+  norm_bwd_sum_kernel<<<grid, kSumGroups * 32, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(parts), n, d, static_cast<float*>(out));
   return cudaGetLastError();
 }
@@ -1055,13 +1174,11 @@ cudaError_t rt_rms_bwd(const void* x, const void* rstd, const void* scale,
   if (rows == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return norm_bwd_wide_launch<float, true>(x, nullptr, rstd, scale, dy,
-                                             dres, dx, dscale_part, nullptr,
-                                             rows, d, s);
+    return rms_bwd_launch<float>(x, rstd, scale, dy, dres, dx, dscale_part,
+                                 rows, d, s);
   if (dtype == 1)
-    return norm_bwd_wide_launch<__nv_bfloat16, true>(
-        x, nullptr, rstd, scale, dy, dres, dx, dscale_part, nullptr, rows, d,
-        s);
+    return rms_bwd_launch<__nv_bfloat16>(x, rstd, scale, dy, dres, dx,
+                                         dscale_part, rows, d, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1070,8 +1187,8 @@ cudaError_t rt_gelu_fwd(const void* x, void* y, long long n, int dtype,
   if (n < 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return gelu_launch<float>(x, nullptr, y, n, s);
-  if (dtype == 1) return gelu_launch<__nv_bfloat16>(x, nullptr, y, n, s);
+  if (dtype == 0) return gelu_fwd_launch<float>(x, y, n, s);
+  if (dtype == 1) return gelu_fwd_launch<__nv_bfloat16>(x, y, n, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1080,8 +1197,8 @@ cudaError_t rt_gelu_bwd(const void* x, const void* g, void* dx, long long n,
   if (n < 0 || g == nullptr) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return gelu_launch<float>(x, g, dx, n, s);
-  if (dtype == 1) return gelu_launch<__nv_bfloat16>(x, g, dx, n, s);
+  if (dtype == 0) return gelu_bwd_launch<float>(x, g, dx, n, s);
+  if (dtype == 1) return gelu_bwd_launch<__nv_bfloat16>(x, g, dx, n, s);
   return cudaErrorInvalidValue;
 }
 

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "rt_rms_bwd_rows_per_block": [],
     "rt_ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "rt_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "rt_ln_bwd_sum": [_P, _I, _I, _P, _P],
+    "rt_norm_bwd_sum": [_P, _I, _I, _I, _P, _P],
     "rt_rms_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "rt_rms_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rt_gelu_fwd": [_P, _P, _LL, _I, _P],
@@ -206,7 +206,7 @@ def ln_bwd(x2d, mu, rstd, scale, dy, dres=None):
     (the residual cotangent, or None) is added into dx. The kernel writes
     one fp32 partial row of dscale and of dbias per block of
     ``rt_ln_bwd_rows_per_block`` rows, and a second kernel
-    (``rt_ln_bwd_sum``) adds them in a fixed order, as the JAX package sums
+    (``norm_bwd_sum``) adds them in a fixed order, as the JAX package sums
     its kernel's partials outside the kernel."""
     if on_cpu(x2d):
         return ref_ln_bwd(x2d, mu, rstd, scale, dy, dres)
@@ -233,20 +233,26 @@ def ln_bwd(x2d, mu, rstd, scale, dy, dres=None):
                 None if dres is None else dres.data_ptr(), dx.data_ptr(),
                 parts[0].data_ptr(), parts[1].data_ptr(), r, d, code,
                 stream(dev))
-    dscale, dbias = ln_bwd_sum(parts)
+    dscale, dbias = norm_bwd_sum(parts)
     return dx, dscale, dbias
 
 
-def ln_bwd_sum(parts):
-    """``ln_bwd``'s partial rows [2, n, D] fp32 (dscale, dbias) on the card
-    -> their column sums [2, D], each column's rows added in a fixed order
-    by one kernel (``torch.sum`` over the middle axis is slower here)."""
-    _, n, d = parts.shape
+def norm_bwd_sum(parts):
+    """A backward's partial rows [k, n, D] fp32 -- ``ln_bwd``'s dscale and
+    dbias (k = 2), ``rms_bwd``'s dscale (k = 1) -- -> their column sums
+    [k, D], each column's rows added in a fixed order by one kernel
+    (``torch.sum`` over the middle axis is slower on the card). A CPU
+    tensor takes the plain version, ``parts.sum(1)``."""
+    if on_cpu(parts):
+        return parts.sum(1)
+    k, n, d = parts.shape
+    _check("norm_bwd_sum parts", parts, device=parts.device,
+           dtype=torch.float32, shape=(k, n, d))
     dev = parts.device
-    sums = torch.empty(2, d, device=dev, dtype=torch.float32)
+    sums = torch.empty(k, d, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
-        raise_on_error("ln_bwd_sum", _lib().rt_ln_bwd_sum(
-            parts.data_ptr(), n, d, sums.data_ptr(), stream(dev)))
+        raise_on_error("norm_bwd_sum", _lib().rt_norm_bwd_sum(
+            parts.data_ptr(), k, n, d, sums.data_ptr(), stream(dev)))
     return sums
 
 
@@ -275,8 +281,8 @@ def rms_bwd(x2d, rstd, scale, dy, dres=None):
     """RMSNorm backward -> (dx, dscale [D] fp32); ``dres`` (the residual
     cotangent, or None) is added into dx. The kernel writes only dscale
     partials, one [D] fp32 row per block of ``rt_rms_bwd_rows_per_block``
-    rows (its own, so that ln_bwd's geometry cannot move it), summed
-    here."""
+    rows (its own, so that ln_bwd's geometry cannot move it), and
+    ``norm_bwd_sum`` adds them in a fixed order."""
     if on_cpu(x2d):
         return ref_rms_bwd(x2d, rstd, scale, dy, dres)
     code = _io_dtype("rms_bwd", x2d)
@@ -294,13 +300,13 @@ def rms_bwd(x2d, rstd, scale, dy, dres=None):
            shape=(d,))
     n_blocks = -(-r // lib.rt_rms_bwd_rows_per_block())
     dx = torch.empty_like(x2d)
-    parts = torch.empty(n_blocks, d, device=dev, dtype=torch.float32)
+    parts = torch.empty(1, n_blocks, d, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         _launch("rms_bwd", lib.rt_rms_bwd, x2d.data_ptr(), rstd.data_ptr(),
                 scale.data_ptr(), dy.data_ptr(),
                 None if dres is None else dres.data_ptr(), dx.data_ptr(),
                 parts.data_ptr(), r, d, code, stream(dev))
-    return dx, parts.sum(0)
+    return dx, norm_bwd_sum(parts)[0]
 
 
 def gelu_fwd(x):

@@ -13,15 +13,19 @@ host clock around 200 back-to-back calls, read before the device is
 synced; the median of 5 such batches).
 For each row shape -- Llama small's (R = 4 x 2048, D = 1024) and GPT-2
 small's (R = 8 x 1024, D = 768) -- in bf16 and fp32 it checks
-``rms_fwd``, ``ln_fwd``, ``ln_bwd`` (with and without dres), ``rms_bwd``,
-``gelu_fwd`` and ``gelu_bwd`` (at four times the width) against their
-plain versions (bf16 outputs within one ulp and bf16 column sums by
-cosine > 0.9999; fp32 within 1e-5 forward and 1e-4 backward of max(1,
-the largest magnitude); rstd and mu within 1e-5 relative) and takes their
-device times beside the library calls for the same functions
-(``F.rms_norm``, ``F.layer_norm``, their autograd backwards, the
-LayerNorm one also plus the dres add, ``F.gelu`` and
-``aten.gelu_backward``; timed here only).
+``rms_fwd``, ``ln_fwd``, ``ln_bwd`` and ``rms_bwd`` (each backward with
+and without dres), ``gelu_fwd`` and ``gelu_bwd`` (at four times the
+width) against their plain versions (bf16 outputs within one ulp and
+bf16 column sums by cosine > 0.9999; fp32 within 1e-5 forward and 1e-4
+backward of max(1, the largest magnitude); rstd and mu within 1e-5
+relative) and takes their device times beside the library calls for the
+same functions (``F.rms_norm``, ``F.layer_norm``, their autograd
+backwards, the LayerNorm one also plus the dres add, ``F.gelu`` and
+``aten.gelu_backward``; timed here only), the partial rows' sum alone
+(one array of ``rms_bwd``'s partials and two of ``ln_bwd``'s, by the
+tree's sum kernel and by ``torch.sum``) and the backward wrappers' host
+cost per call. It also reports ptxas's registers and spills for every
+kernel of the tree's ``fused_norm.cu`` (``ptxas``).
 Prints one JSON line and exits non-zero if a check fails. Needs a CUDA
 device.
 
@@ -41,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import sys
 import time
@@ -181,11 +186,14 @@ def _bwd_ok(got, want, dtype) -> bool:
 def bench_rows(fn, shape, dtype, flush) -> dict:
     """The norm and GELU kernels at one row shape and dtype, each checked
     against its plain version and timed beside its library call: rms_fwd,
-    ln_fwd, ln_bwd (with and without dres), rms_bwd (with dres), gelu_fwd
-    and gelu_bwd (on [rows, 4 * d], the MLP's width). The library
-    backwards are autograd through ``F.layer_norm`` / ``F.rms_norm`` for
-    (x, weight(, bias)), which add no dres; ``layer_norm_bwd_dres_library``
-    is the same plus the dres add, the work ``ln_bwd`` does with dres."""
+    ln_fwd, ln_bwd and rms_bwd (with and without dres), gelu_fwd and
+    gelu_bwd (on [rows, 4 * d], the MLP's width). The library backwards
+    are autograd through ``F.layer_norm`` / ``F.rms_norm`` for (x,
+    weight(, bias)), which add no dres; ``layer_norm_bwd_dres_library``
+    is the same plus the dres add, the work ``ln_bwd`` does with dres.
+    The partials' sums are timed on random [k, n, D] fp32 arrays of the
+    sizes the two backwards write at this shape (``*_partials_sum``: the
+    tree's kernel; ``torch_*``: ``torch.sum`` over the middle axis)."""
     F = torch.nn.functional
     name, rows, d = shape
     g = torch.Generator(device="cuda").manual_seed(rows + d)
@@ -214,9 +222,10 @@ def bench_rows(fn, shape, dtype, flush) -> dict:
         checks[f"ln_bwd{tag}_ok"] = _bwd_ok(
             fn.ln_bwd(x, mu_r, rs_r, scale, dy, res),
             fn.ref_ln_bwd(x, mu_r, rs_r, scale, dy, res), dtype)
-    checks["rms_bwd_dres_ok"] = _bwd_ok(
-        fn.rms_bwd(x, rstd_r, scale, dy, dres),
-        fn.ref_rms_bwd(x, rstd_r, scale, dy, dres), dtype)
+    for res, tag in ((None, ""), (dres, "_dres")):
+        checks[f"rms_bwd{tag}_ok"] = _bwd_ok(
+            fn.rms_bwd(x, rstd_r, scale, dy, res),
+            fn.ref_rms_bwd(x, rstd_r, scale, dy, res), dtype)
     gelu_dx, gelu_dx_r = fn.gelu_bwd(xg, gg), fn.ref_gelu_bwd(xg, gg)
     checks["gelu_bwd_ok"] = (bf16_within_ulp(gelu_dx, gelu_dx_r)
                              if dtype == torch.bfloat16
@@ -231,10 +240,13 @@ def bench_rows(fn, shape, dtype, flush) -> dict:
         return torch.autograd.grad(yl_l, (x_l, w_g, b_g), dy,
                                    retain_graph=True)
 
-    # The sum over ln_bwd's partial rows alone: the kernel the wrapper
-    # launches for it, where the tree has one, and torch.sum.
-    n_parts = -(-rows // fn._lib().rt_ln_bwd_rows_per_block())
-    parts = torch.randn(2, n_parts, d, device="cuda", generator=g)
+    # The sums over the partial rows alone: ln_bwd's two arrays and
+    # rms_bwd's one, by the tree's kernel where it has one and torch.sum.
+    lib = fn._lib()
+    parts = torch.randn(2, -(-rows // lib.rt_ln_bwd_rows_per_block()), d,
+                        device="cuda", generator=g)
+    rms_parts = torch.randn(1, -(-rows // lib.rt_rms_bwd_rows_per_block()),
+                            d, device="cuda", generator=g)
     calls = {
         "rms_fwd": lambda: fn.rms_fwd(x, scale),
         "rms_norm_library": lambda: F.rms_norm(x, (d,), w_l, fn.RMS_EPS),
@@ -244,8 +256,10 @@ def bench_rows(fn, shape, dtype, flush) -> dict:
         "ln_bwd": lambda: fn.ln_bwd(x, mu_r, rs_r, scale, dy),
         "ln_bwd_dres": lambda: fn.ln_bwd(x, mu_r, rs_r, scale, dy, dres),
         "torch_partials_sum": lambda: parts.sum(1),
+        "torch_rms_partials_sum": lambda: rms_parts.sum(1),
         "layer_norm_bwd_library": ln_grad,
         "layer_norm_bwd_dres_library": lambda: ln_grad()[0] + dres,
+        "rms_bwd": lambda: fn.rms_bwd(x, rstd_r, scale, dy),
         "rms_bwd_dres": lambda: fn.rms_bwd(x, rstd_r, scale, dy, dres),
         "rms_norm_bwd_library": lambda: torch.autograd.grad(
             yr_l, (x_l, w_g), dy, retain_graph=True),
@@ -255,14 +269,77 @@ def bench_rows(fn, shape, dtype, flush) -> dict:
         "gelu_bwd_library": lambda: torch.ops.aten.gelu_backward(
             gg, xg, approximate="tanh"),
     }
-    if hasattr(fn, "ln_bwd_sum"):
-        calls["ln_bwd_sum"] = lambda: fn.ln_bwd_sum(parts)
-        checks["ln_bwd_sum_ok"] = _rel_err(fn.ln_bwd_sum(parts),
-                                           parts.sum(1)) <= 1e-4
+    sums = {}
+    if hasattr(fn, "norm_bwd_sum"):
+        sums = {"ln": parts, "rms": rms_parts}
+        part_sum = fn.norm_bwd_sum
+    elif hasattr(fn, "ln_bwd_sum"):  # an earlier tree: ln_bwd's arrays only
+        sums = {"ln": parts}
+        part_sum = fn.ln_bwd_sum
+    for tag, p in sums.items():
+        calls[f"{tag}_partials_sum"] = lambda p=p: part_sum(p)
+        checks[f"{tag}_partials_sum_ok"] = _rel_err(part_sum(p),
+                                                    p.sum(1)) <= 1e-4
+    hosts = {"rms_bwd_dres": calls["rms_bwd_dres"],
+             "ln_bwd_dres": calls["ln_bwd_dres"],
+             "gelu_bwd": calls["gelu_bwd"]}
     return {"shape": name, "rows": rows, "d": d,
             "dtype": str(dtype).split(".")[-1], "ok": all(checks.values()),
             **checks, **{f"{k}_ms": device_ms(f, flush)
-                         for k, f in calls.items()}}
+                         for k, f in calls.items()},
+            **{f"{k}_host_us": host_us(f) for k, f in hosts.items()}}
+
+
+# Template arguments in a mangled kernel name: the I/O type, an int, a bool.
+_MANGLED_ARG = re.compile(r"13__nv_bfloat16|f|Li(\d+)E|Lb([01])E")
+# The name follows its length in the mangling, so a digit comes before it
+# (and not before the source file's name in the anonymous namespace's).
+_KERNEL = re.compile(r"(?<=\d)((?:ln|rms|gelu|norm|flash)_\w*?kernel)(?:I((?:"
+                     r"13__nv_bfloat16|f|Li\d+E|Lb[01]E)+)E)?")
+
+
+def _kernel_name(line):
+    """``ln_bwd_kernel<bf16,8,3>`` (``norm_bwd_sum_kernel``: no template)
+    for a line naming a mangled kernel of either source, else None."""
+    m = _KERNEL.search(line)
+    if not m:
+        return None
+    if m.group(2) is None:
+        return m.group(1)
+    args = []
+    for a in _MANGLED_ARG.finditer(m.group(2)):
+        args.append({"13__nv_bfloat16": "bf16", "f": "f32"}.get(
+            a.group(0), a.group(1) or a.group(2)))
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def ptxas_report(log_texts, fa=None):
+    """{kernel<args>: registers, spill bytes, static and dynamic shared
+    memory and ptxas's performance notes} for every kernel in the
+    ``-Xptxas -v`` logs the build keeps; a flash kernel's dynamic shared
+    memory is what its launcher requests (``fa.smem_bytes``; ptxas sees
+    only static shared memory), the norm kernels take none."""
+    report, cur = {}, None
+    for line in "\n".join(log_texts).splitlines():
+        name = _kernel_name(line)
+        if "Compiling entry function" in line and name:
+            cur = name
+            m = re.match(r"(flash_(?:fwd|dkv|dq))_kernel<(\d+)>", name)
+            report.setdefault(cur, {"notes": []})["dynamic_smem"] = (
+                fa.smem_bytes(m.group(1), int(m.group(2))) if m and fa
+                else 0)
+        elif name and re.search(r"\(C\d+\)", line):
+            code = re.search(r"\((C\d+)\)", line).group(1)
+            report.setdefault(name, {"notes": []})["notes"].append(code)
+        elif cur and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            report[cur].update(spill_stores=int(st), spill_loads=int(ld))
+        elif cur and "Used" in line and "registers" in line:
+            report[cur]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            report[cur]["static_smem"] = int(sm.group(1)) if sm else 0
+    return report
 
 
 def main(argv=None) -> int:
@@ -291,8 +368,13 @@ def main(argv=None) -> int:
                                       for s in SHAPES]
     rows += [bench_rows(fn, s, dt, flush) for s in ROW_SHAPES
              for dt in (torch.bfloat16, torch.float32)]
+    ptxas = ptxas_report(
+        [_build.library_path("fused_norm").with_suffix(".log").read_text()])
     line = {"label": args.label, "root": args.root,
             "device": torch.cuda.get_device_name(0), "build_s": build_s,
+            "ptxas": {k: {f: r.get(f) for f in ("registers", "spill_stores",
+                                                "spill_loads")}
+                      for k, r in ptxas.items()},
             "shapes": rows}
     text = json.dumps(line)
     print(text)

@@ -31,9 +31,10 @@ import torch
 # Kernel classes by substring of the kernel name, first match wins.
 CLASSES = (
     ("flash", ("flash_fwd_kernel", "flash_dkv_kernel", "flash_dq_kernel")),
-    ("rms", ("rms_fwd_kernel", "rms_fwd_wide_kernel", "rms_bwd_kernel")),
+    ("rms", ("rms_fwd_kernel", "rms_fwd_wide_kernel", "rms_bwd_kernel",
+             "rms_bwd_wide_kernel")),
     ("fused_norm", ("ln_fwd_kernel", "ln_fwd_wide_kernel", "ln_bwd_kernel",
-                    "ln_bwd_wide_kernel", "ln_bwd_sum_kernel",
+                    "ln_bwd_wide_kernel", "norm_bwd_sum_kernel",
                     "gelu_fwd_kernel", "gelu_bwd_kernel")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("softmax", ("softmax",)),

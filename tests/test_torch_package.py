@@ -119,6 +119,17 @@ def test_flash_requests_take_flash_on_cpu(monkeypatch):
     assert calls == [1]
 
 
+@pytest.mark.parametrize("k", [1, 2])
+def test_norm_bwd_sum_takes_the_plain_sum_on_cpu(k):
+    """On the CPU the partial rows' sum is its plain version, the column
+    sums over the middle axis, so the CPU backward adds them as the JAX
+    package adds its kernel's partials."""
+    parts = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (k, 5, 7), dtype=np.float32))
+    torch.testing.assert_close(fn.norm_bwd_sum(parts), parts.sum(1),
+                               rtol=0, atol=0)
+
+
 def test_wrappers_reject_other_devices():
     x = torch.empty(2, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -254,27 +265,118 @@ def test_ln_bwd_is_deterministic(cuda, dtype, rows, d):
         assert torch.equal(a, b)
 
 
+def _check_rms_bwd(got, want, dtype):
+    """dx within one bf16 ulp (fp32: 1e-4); dscale within 1e-4 in fp32, by
+    cosine > 0.9999 in bf16."""
+    _check(got[0], want[0], 1e-4)
+    if dtype == torch.float32:
+        _check(got[1], want[1], 1e-4)
+    else:
+        assert float(torch.nn.functional.cosine_similarity(
+            got[1], want[1], dim=0)) > 0.9999
+
+
+def _shifted(cuda, t):
+    """A copy of ``t`` one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, device=cuda, dtype=t.dtype)
+    flat[1:] = t.flatten()
+    return flat[1:].view(t.shape)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows", [16, 40, 48])
-def test_rms_bwd_keeps_its_own_row_blocks(cuda, dtype, rows):
-    """rms_bwd's partials are sized by its own export (16 rows a block),
-    whatever ln_bwd's block is, and it still matches its plain version at
-    row counts that are and are not multiples of either block."""
-    assert fn._lib().rt_rms_bwd_rows_per_block() == 16
+def test_rms_bwd_keeps_its_own_row_blocks(cuda, dtype, rows, monkeypatch):
+    """rms_bwd sizes its partials by its own export,
+    ``rt_rms_bwd_rows_per_block`` (one partial row per block, whatever
+    ln_bwd's block is), hands them to ``norm_bwd_sum`` as one array, and
+    still matches its plain version at row counts that are and are not
+    multiples of either block."""
+    per_block = fn._lib().rt_rms_bwd_rows_per_block()
+    seen, real_sum = [], fn.norm_bwd_sum
+
+    def spy(parts):
+        seen.append(tuple(parts.shape))
+        return real_sum(parts)
+
+    monkeypatch.setattr(fn, "norm_bwd_sum", spy)
     d = 1024
     x, scale, _, dy, dres = _ln_inputs(cuda, rows, d, dtype, rows)
     _, rstd = fn.ref_rms_fwd(x, scale)
     for res in (None, dres):
-        dx, dscale = fn.rms_bwd(x, rstd, scale, dy, res)
-        dx_ref, dscale_ref = fn.ref_rms_bwd(x, rstd, scale, dy, res)
-        _check(dx, dx_ref, 1e-4)
-        if dtype == torch.float32:
-            _check(dscale, dscale_ref, 1e-4)
-        else:
-            assert float(torch.nn.functional.cosine_similarity(
-                dscale, dscale_ref, dim=0)) > 0.9999
+        _check_rms_bwd(fn.rms_bwd(x, rstd, scale, dy, res),
+                       fn.ref_rms_bwd(x, rstd, scale, dy, res), dtype)
     torch.cuda.synchronize()
+    assert seen == [(1, -(-rows // per_block), d)] * 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(37, 1024), (45, 1024), (37, 768),
+                                    (45, 768), (64, 1024), (1000, 1024),
+                                    (37, 1025), (37, 1032)])
+def test_rms_bwd_one_warp_rows_match_plain(cuda, dtype, rows, d):
+    """rms_bwd takes one warp a row up to 1024 wide and the multi-warp rows
+    past it (1025 not readable 16 bytes at a time, 1032 readable): dx and
+    dscale against the plain version, with and without dres, at row counts
+    that are not a multiple of its row block (37, 45, 1000)."""
+    x, scale, _, dy, dres = _ln_inputs(cuda, rows, d, dtype, rows * d)
+    _, rstd = fn.ref_rms_fwd(x, scale)
+    before = fn.KERNEL_INVOCATIONS["rms_bwd"]
+    for res in (None, dres):
+        _check_rms_bwd(fn.rms_bwd(x, rstd, scale, dy, res),
+                       fn.ref_rms_bwd(x, rstd, scale, dy, res), dtype)
+    torch.cuda.synchronize()
+    assert fn.KERNEL_INVOCATIONS["rms_bwd"] == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [96, 1024])
+def test_rms_bwd_takes_unaligned_rows(cuda, dtype, d):
+    """x, scale, dy and dres one element past a 16-byte boundary: rms_bwd
+    takes the multi-warp rows, reads them an element at a time and matches
+    the plain version."""
+    x, scale, _, dy, dres = (_shifted(cuda, t) for t in _ln_inputs(
+        cuda, 21, d, dtype, d + 2))
+    assert all(t.data_ptr() % 16 for t in (x, scale, dy, dres))
+    _, rstd = fn.ref_rms_fwd(x, scale)
+    _check_rms_bwd(fn.rms_bwd(x, rstd, scale, dy, dres),
+                   fn.ref_rms_bwd(x, rstd, scale, dy, dres), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(1000, 1024), (1000, 768), (100, 1025)])
+def test_rms_bwd_is_deterministic(cuda, dtype, rows, d):
+    """dx and dscale bitwise the same in two calls: the column sums are
+    added in a fixed order, with no atomics, on the one-warp path (768,
+    1024) and the multi-warp one (1025)."""
+    x, scale, _, dy, dres = _ln_inputs(cuda, rows, d, dtype, 5)
+    _, rstd = fn.ref_rms_fwd(x, scale)
+    first = fn.rms_bwd(x, rstd, scale, dy, dres)
+    second = fn.rms_bwd(x, rstd, scale, dy, dres)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("n,d", [(256, 1024), (256, 768), (1, 33), (37, 100)])
+def test_norm_bwd_sum_matches_torch_sum(cuda, k, n, d):
+    """The partial rows' sum kernel against ``parts.sum(1)`` for one array
+    (rms_bwd) and two (ln_bwd), within 1e-5 of max(1, |sum|) (the rows are
+    added in another order), and the same bits in two calls."""
+    g = torch.Generator(device=cuda).manual_seed(k * n + d)
+    parts = torch.randn(k, n, d, device=cuda, generator=g)
+    got = fn.norm_bwd_sum(parts)
+    again = fn.norm_bwd_sum(parts)
+    torch.cuda.synchronize()
+    assert got.shape == (k, d)
+    _check(got, parts.sum(1), 1e-5)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
@@ -380,6 +482,28 @@ def test_gelu_kernels_match_plain(cuda, dtype, shape):
     _check(fn.gelu_fwd(x), fn.ref_gelu(x), 1e-5)
     _check(fn.gelu_bwd(x, dy), fn.ref_gelu_bwd(x, dy), 1e-4)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,shift", [(100, 0), (1001, 0), (8199, 0),
+                                     (65536 + 5, 0), (3 * 8192, 0),
+                                     (1001, 1), (65536 + 5, 1)])
+def test_gelu_bwd_takes_any_length_and_alignment(cuda, dtype, n, shift):
+    """gelu_bwd's one-shot grid against the plain version: lengths shorter
+    than one CTA's span (100), not a multiple of a 16-byte pack (1001,
+    8199, 65541), a whole number of CTAs (24576), and views one element
+    past a 16-byte boundary (shift 1, read an element at a time)."""
+    g = torch.Generator(device=cuda).manual_seed(n + shift)
+    x = (2 * torch.randn(n + shift, device=cuda, generator=g)).to(dtype)
+    dy = torch.randn(n + shift, device=cuda, generator=g).to(dtype)
+    x, dy = x[shift:], dy[shift:]
+    assert (x.data_ptr() % 16 != 0) == bool(shift)
+    before = fn.KERNEL_INVOCATIONS["gelu_bwd"]
+    got = fn.gelu_bwd(x, dy)
+    torch.cuda.synchronize()
+    assert fn.KERNEL_INVOCATIONS["gelu_bwd"] == before + 1
+    _check(got, fn.ref_gelu_bwd(x, dy), 1e-4)
 
 
 @pytest.mark.gpu
