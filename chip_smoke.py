@@ -30,9 +30,9 @@ that fails:
      LayerNorm and GELU kernels around the LayerNorm kernels' one-warp
      rows (768 and 1024 at 37, 45 and 64 rows; 769 and 1025 past them);
      ``ln_bwd`` and ``rms_bwd`` are also called twice on the same inputs
-     and must give the same bits; ``gelu_bwd`` alone at lengths that are
-     not a multiple of a 16-byte pack, shorter than one CTA's span, and on
-     a view one element past a 16-byte boundary;
+     and must give the same bits; the GELU kernels alone at lengths that
+     are not a multiple of a 16-byte pack, shorter than one CTA's span,
+     and on views one element past a 16-byte boundary;
    - the flash kernels at the GPT-2-small shape (B=8, T=1024, H=12, D=64,
      bf16, causal, q/k/v strided views of one [B, T, 3*768] tensor, as the
      model passes them), at the Llama-small shape (B=4, T=2048, H=16,
@@ -61,8 +61,28 @@ that fails:
    flash + fused norms, and dense + fused norms, each against fully plain
    (dense attention, ``fused_norm=False``); Llama (batch 2) flash + RMSNorm
    kernels, and dense + RMSNorm kernels, each against fully plain;
-6. one JSON line of every TPU kernel of the JAX package, all ported;
-7. the last line, ``{"ok": true, "device": {...}}``.
+6. serving: two ``LLMEngine``s at full width through ``measure_serve``
+   (every kernel counter set to 0 just before each and read just after:
+   the serving path reaches no kernel, as in the reference), each serving
+   64 requests (prompts of 16-128 / 16-256 random tokens from seed 3, 64
+   new tokens each, no eos), with its decode step and prefill lane as CUDA
+   graphs:
+   - GPT-2 small (bf16 activations), 32 slots, cache 1024, prefill lane
+     4 x 128;
+   - Llama small (bf16 activations), 32 slots, cache 2048, prefill lane
+     4 x 256;
+   each must return exactly 64 tokens a request, count ``{decode: 1,
+   prefill: 1}`` compiles, and give the same tokens from one decode step
+   replayed from its graph and called eagerly (same cache snapshot and
+   input; the logits' max abs diff printed); then an fp32 copy of each
+   config must give, for 4 prompts x 8 tokens, the tokens of the model's
+   naive full-forward loop up to the first step where that loop's top-2
+   logit gap is under 1e-4 * max(1, |top logit|) (the smallest gap
+   printed). The engines' numbers (decode tok/s at full occupancy, step
+   ms graph and eager, prefill ms, TTFT p50/p99, peak memory) are
+   printed beside the card's name and power limit;
+7. one JSON line of every TPU kernel of the JAX package, all ported;
+8. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerances: fused-norm (LayerNorm, RMSNorm, GELU) fp32 outputs within
 1e-5 (forward) and 1e-4 (gradients) of the plain version, relative to the
@@ -163,7 +183,7 @@ NORM_ODD_WIDTHS = ((37, 100), (64, 8192), (37, 2050))
 RMS_WARP_WIDTHS = ((37, 1), (37, 31), (37, 1024), (45, 1024), (37, 768),
                    (45, 768), (37, 1025), (37, 1032))
 RMS_UNALIGNED_WIDTHS = ((21, 96), (21, 1024))
-# gelu_bwd lengths: shorter than one CTA's span of 16-byte packs (100),
+# GELU lengths: shorter than one CTA's span of 16-byte packs (100),
 # not a multiple of a pack (1001), whole CTAs plus a tail of elements
 # (8199, 98309); each also on a view one element past a 16-byte boundary.
 GELU_ODD_LENGTHS = (100, 1001, 8199, 3 * 8192 * 4 + 5)
@@ -172,6 +192,10 @@ GELU_ODD_LENGTHS = (100, 1001, 8199, 3 * 8192 * 4 + 5)
 # 32-row block; 769 is not readable 16 bytes at a time, 1025 too wide.
 LN_WARP_WIDTHS = ((37, 768), (45, 768), (37, 769), (64, 1024), (64, 1025))
 CROSSOVER_SEQS = (512, 1024, 2048)
+# The serving phase: requests per engine and new tokens a request; the
+# fp32 check's prompts and tokens.
+SERVE_REQUESTS, SERVE_NEW_TOKENS = 64, 64
+NAIVE_PROMPTS, NAIVE_TOKENS = 4, 8
 
 
 class PhaseError(RuntimeError):
@@ -344,16 +368,18 @@ def check_rms(torch, fn, rows, d, dtype, failures, seed, shift=False):
     return errs, dict(x=x, scale=scale, dy=dy, dres=dres, rstd=rstd_r)
 
 
-def check_gelu_bwd(torch, fn, n, dtype, failures, seed):
-    """gelu_bwd alone against its plain version on n elements, aligned and
-    on views one element past a 16-byte boundary."""
+def check_gelu(torch, fn, n, dtype, failures, seed):
+    """gelu_fwd and gelu_bwd alone against their plain versions on n
+    elements, aligned and on views one element past a 16-byte boundary."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (2 * torch.randn(n + 1, device="cuda", generator=g)).to(dtype)
     dy = torch.randn(n + 1, device="cuda", generator=g).to(dtype)
     for shift in (0, 1):
         xs, gs = x[shift:shift + n], dy[shift:shift + n]
-        compare(torch, f"gelu_bwd [n={n} {str(dtype).split('.')[-1]} "
-                f"shift {shift}]", fn.gelu_bwd(xs, gs),
+        tag = f"[n={n} {str(dtype).split('.')[-1]} shift {shift}]"
+        compare(torch, f"gelu_fwd {tag}", fn.gelu_fwd(xs), fn.ref_gelu(xs),
+                1e-5, failures)
+        compare(torch, f"gelu_bwd {tag}", fn.gelu_bwd(xs, gs),
                 fn.ref_gelu_bwd(xs, gs), 1e-4, failures)
     torch.cuda.synchronize()
 
@@ -571,6 +597,79 @@ def compare_paths(torch, loss_fn, params, tokens, paths):
     return report
 
 
+def serve_phase(torch, counters, smi):
+    """Phase 6: both serving engines at full width, each with the kernel
+    counters zeroed just before it and read just after, then the fp32
+    copies against the naive loop. Returns the report entries."""
+    import gc
+
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.scripts.measure import (SERVE_ENGINES, measure_serve,
+                                               serve_prompts, serve_vs_naive)
+
+    out = {}
+    for model, cfg in (("gpt2", GPT2Config.small()),
+                       ("llama", LlamaConfig.small())):
+        for c in counters:
+            c.clear()
+        r = measure_serve(model, "small", requests=SERVE_REQUESTS,
+                          max_new_tokens=SERVE_NEW_TOKENS, device="cuda")
+        r["kernel_launches"] = {k: sum(c[k] for c in counters)
+                                for k in PORTED}
+        gve = r["graph_vs_eager"]
+        require(r["decode_tok_s_full"] is not None,
+                f"serving {model}: no sample saw every slot busy")
+        print(f"serving {model} {cfg.n_params / 1e6:.0f}M {r['dtype']}, "
+              f"{r['max_batch']} slots, cache {r['cache_len']}, prefill "
+              f"{r['prefill_rows']}x{r['max_prompt_len']}, "
+              f"{SERVE_REQUESTS} requests x {SERVE_NEW_TOKENS} tokens "
+              f"[{smi}]: decode {r['decode_tok_s_full']:.1f} tok/s at full "
+              f"occupancy ({r['full_window_steps']} steps), "
+              f"{r['serve_tok_s']:.1f} tok/s over the run "
+              f"({r['wall_s']:.2f} s); decode step {r['step_ms_graph']:.3f} "
+              f"ms graph / {r['step_ms_eager']:.3f} ms eager; prefill lane "
+              f"{r['prefill_ms_graph']:.3f} / {r['prefill_ms_eager']:.3f} ms; "
+              f"TTFT p50 {r['ttft_ms_p50']:.1f} ms p99 "
+              f"{r['ttft_ms_p99']:.1f} ms; peak memory "
+              f"{r['peak_memory_bytes'] / 2**30:.2f} GiB; build "
+              f"{r['build_s']:.1f} s")
+        print(f"serving {model} [{smi}]: compiles {r['compiles']}, "
+              f"tokens/request "
+              f"{sorted(set(r['tokens_per_request']))}, graph vs eager step: "
+              f"tokens equal {gve['tokens_equal']}, logits max abs diff "
+              f"{gve['logits_max_abs_diff']:.3e}, kernel launches "
+              f"{sum(r['kernel_launches'].values())}")
+        require(not r["errors"] and all(
+            n == SERVE_NEW_TOKENS for n in r["tokens_per_request"]),
+            f"serving {model}: tokens per request {r['tokens_per_request']}, "
+            f"errors {r['errors']}")
+        require(r["compiles"] == {"decode": 1, "prefill": 1},
+                f"serving {model}: compiles {r['compiles']}")
+        require(gve["tokens_equal"],
+                f"serving {model}: graph and eager decode tokens differ")
+        require(not any(r["kernel_launches"].values()),
+                f"serving {model} launched kernels: {r['kernel_launches']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        naive = serve_vs_naive(
+            model, dataclasses.replace(cfg, dtype=torch.float32),
+            prompts=serve_prompts(NAIVE_PROMPTS, cfg.vocab_size,
+                                  SERVE_ENGINES[model]["max_prompt_len"]),
+            n_tokens=NAIVE_TOKENS, device="cuda")
+        print(f"serving {model} fp32 vs naive loop [{smi}]: match "
+              f"{naive['match']}, "
+              f"{naive['compared']} of {NAIVE_PROMPTS * NAIVE_TOKENS} tokens "
+              f"compared, smallest top-2 logit gap {naive['min_gap']:.3e}")
+        require(naive["match"], f"serving {model}: engine tokens differ "
+                f"from the naive loop: {naive['prompts']}")
+        r["vs_naive_fp32"] = naive
+        out[model] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -660,7 +759,7 @@ def main() -> int:
                       shift=True)
     for n in GELU_ODD_LENGTHS:
         for dtype in (torch.bfloat16, torch.float32):
-            check_gelu_bwd(torch, fn, n, dtype, failures, n)
+            check_gelu(torch, fn, n, dtype, failures, n)
     for rows, d in LN_WARP_WIDTHS:
         for dtype in (torch.bfloat16, torch.float32):
             check_kernels(torch, fn, rows, d, dtype, failures, rows + d)
@@ -745,7 +844,10 @@ def main() -> int:
                                       use_flash=False)}))
     del params
 
-    # Phase 6: the kernels line. Each kernel's launches are those of the
+    # Phase 6: the serving engines.
+    report["serving"] = serve_phase(torch, counters, smi)
+
+    # Phase 7: the kernels line. Each kernel's launches are those of the
     # main path it belongs to (the flash kernels: GPT-2's, with Llama's
     # beside them).
     kernels = []
@@ -786,7 +888,7 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps(report["kernels_line"]))
 
-    # Phase 7.
+    # Phase 8.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,4 +1,6 @@
-"""GPT-2 in PyTorch, training half (port of ``ray_tpu/models/gpt2.py``).
+"""GPT-2 in PyTorch (port of ``ray_tpu/models/gpt2.py``): the training
+half and the decode half (``gpt2_init_cache``, ``gpt2_decode_step``,
+``gpt2_prefill``) the serving engine runs.
 
 Parameters are a nested dict with the JAX package's key names and stacked
 ``[n_layer, ...]`` block leaves (``gpt2_param_axes`` there), so a JAX
@@ -20,6 +22,9 @@ What differs from the JAX module, and why:
   the product is taken in fp32 on the upcast operands (the upcast is exact).
 * ``attention_impl`` other than ``"auto"`` raises: ring and Ulysses
   attention are later slices.
+* The decode half updates the cache in place and returns it (the
+  reference's donated buffer), and maps token ids as JAX's gather does
+  (``ops/attention.py:take_rows``).
 """
 
 from __future__ import annotations
@@ -38,7 +43,13 @@ from ray_tpu_torch.models._remat import (
     remat_block,
     run_layers,
 )
-from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.ops.attention import (
+    cache_write_prompt,
+    cache_write_token,
+    cached_decode_attention,
+    causal_attention,
+    take_rows,
+)
 from ray_tpu_torch.ops.fused_norm import (
     fused_gelu,
     fused_layer_norm,
@@ -242,6 +253,107 @@ def gpt2_loss(params: Params, batch: dict, cfg: GPT2Config):
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, targets[..., None])[..., 0]
     return torch.mean(lse - picked)
+
+
+# -- autoregressive decoding (serving path) --------------------------------
+#
+# The serving engine (``serve/llm_engine.py``) runs ONE decode step over a
+# fixed ``[max_batch + 1]`` slot batch and one ``[rows, prompt_len]``
+# prefill lane, each captured once as a CUDA graph, so these functions are
+# shape-stable and never sync with the host. The cache is a slot-indexed
+# ring, ``[n_layer, slots, cache_len, n_head, head_dim]`` in ``cfg.dtype``:
+# a token's K/V lands at ``pos % cache_len``, attention covers
+# ``min(pos + 1, cache_len)`` entries -- a generation longer than the cache
+# degrades to sliding-window attention -- and the position embedding takes
+# the absolute position clamped to ``seq_len - 1``.
+
+
+def gpt2_init_cache(cfg: GPT2Config, slots: int, cache_len: int, *,
+                    device=None) -> Params:  # decode-path
+    """Ring KV-cache for ``slots`` concurrent sequences, in ``cfg.dtype``."""
+    device = resolve_device(device)
+    shape = (cfg.n_layer, slots, cache_len, cfg.n_head, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def _decode_mlp(x, p: Params, dt):
+    """The second half of a block: x + MLP(LN2(x))."""
+    y = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
+    y = y @ p["mlp_in_w"].to(dt) + p["mlp_in_b"].to(dt)
+    y = ref_gelu(y)
+    return x + y @ p["mlp_out_w"].to(dt) + p["mlp_out_b"].to(dt)
+
+
+def _logits(x, params: Params, dt):
+    """fp32 logits from the bf16-cast operands, as the reference's
+    ``preferred_element_type=float32`` (the upcast is exact)."""
+    return x.float() @ params["wte"].to(dt).float().T
+
+
+def gpt2_decode_step(params: Params, cache: Params, tokens, pos,
+                     cfg: GPT2Config):
+    """One decode iteration for every slot.
+
+    tokens [S] int (each slot's current token), pos [S] int (its absolute
+    position). Writes each token's K/V at its slot's ring cursor, in
+    place, attends over the valid window, and returns (logits [S, V]
+    fp32, cache). Free slots compute garbage into their own rows."""
+    s = tokens.shape[0]
+    d, h, hd = cfg.d_model, cfg.n_head, cfg.head_dim
+    cache_len = cache["k"].shape[2]
+    dt = cfg.dtype
+    cursor = pos % cache_len
+    valid = (pos + 1).clamp(max=cache_len)
+    wpe_pos = pos.clamp(0, cfg.seq_len - 1)
+    x = take_rows(params["wte"], tokens).to(dt) + params["wpe"][wpe_pos].to(dt)
+    for i in range(cfg.n_layer):
+        p = {k: v[i] for k, v in params["blocks"].items()}
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+        y = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
+        qkv = y @ p["attn_qkv_w"].to(dt) + p["attn_qkv_b"].to(dt)
+        q, k_new, v_new = qkv.split(d, dim=-1)
+        cache_write_token(k_cache, k_new.reshape(s, 1, h, hd), cursor)
+        cache_write_token(v_cache, v_new.reshape(s, 1, h, hd), cursor)
+        attn = cached_decode_attention(q.reshape(s, h, hd), k_cache, v_cache,
+                                       valid, dt)
+        x = x + attn.reshape(s, d) @ p["attn_out_w"].to(dt) \
+            + p["attn_out_b"].to(dt)
+        x = _decode_mlp(x, p, dt)
+    x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
+    return _logits(x, params, dt), cache
+
+
+def gpt2_prefill(params: Params, cache: Params, tokens, slots, lengths,
+                 cfg: GPT2Config):
+    """Chunked-prefill lane, the engine's second (and only other) shape.
+
+    tokens [R, P] int zero-padded prompts, slots [R] int (each row's cache
+    slot; unused rows point at a scratch slot), lengths [R] int. Runs the
+    causal forward over the padded window with dense attention (as the
+    reference, ``use_flash=False``), writes rows ``[0, P)`` of each target
+    slot's K/V cache in place, and returns (logits [R, V] fp32 at each
+    prompt's last real token, cache). Rows past a prompt's length hold pad
+    garbage, which the decode mask never reads before the slot's own later
+    writes replace it."""
+    r, p_len = tokens.shape
+    d, h, hd = cfg.d_model, cfg.n_head, cfg.head_dim
+    dt = cfg.dtype
+    x = take_rows(params["wte"], tokens).to(dt) + params["wpe"][:p_len].to(dt)
+    for i in range(cfg.n_layer):
+        p = {k: v[i] for k, v in params["blocks"].items()}
+        y = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
+        qkv = y @ p["attn_qkv_w"].to(dt) + p["attn_qkv_b"].to(dt)
+        q, k_, v_ = (a.reshape(r, p_len, h, hd) for a in qkv.split(d, dim=-1))
+        attn = causal_attention(q, k_, v_, use_flash=False)
+        cache_write_prompt(cache["k"][i], k_, slots)
+        cache_write_prompt(cache["v"][i], v_, slots)
+        x = x + attn.reshape(r, p_len, d) @ p["attn_out_w"].to(dt) \
+            + p["attn_out_b"].to(dt)
+        x = _decode_mlp(x, p, dt)
+    x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
+    last = x[torch.arange(r, device=x.device), (lengths - 1).clamp(0, p_len - 1)]
+    return _logits(last, params, dt), cache
 
 
 def gpt2_flops_per_token(cfg: GPT2Config, seq_len: int | None = None) -> float:

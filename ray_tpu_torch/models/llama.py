@@ -1,6 +1,6 @@
-"""Llama-family decoder in PyTorch, training half (port of
-``ray_tpu/models/llama.py``): RMSNorm, rotary embeddings, SwiGLU, grouped-
-query attention and an untied head.
+"""Llama-family decoder in PyTorch (port of ``ray_tpu/models/llama.py``):
+RMSNorm, rotary embeddings, SwiGLU, grouped-query attention and an untied
+head, the training half and the decode half the serving engine runs.
 
 Parameters are a nested dict with the JAX package's key names and layouts
 (stacked ``[n_layer, ...]`` block leaves, ``lm_head`` ``[d, V]``), so a JAX
@@ -23,7 +23,9 @@ What differs from the JAX module, and why (as in ``models/gpt2.py``):
   0`` and the plain chain elsewhere, which computes the same function.
 
 The decode half (``llama_init_cache``, ``_rope_at``, ``llama_decode_step``,
-``llama_prefill``) is ported with the serving slice; it reaches no kernel.
+``llama_prefill``) reaches no kernel: it runs the plain RMSNorm chain, as
+the reference does. As in ``models/gpt2.py``, it updates the cache in place
+and maps token ids as JAX's gather does.
 """
 
 from __future__ import annotations
@@ -41,7 +43,13 @@ from ray_tpu_torch.models._remat import (
     remat_block,
     run_layers,
 )
-from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.ops.attention import (
+    cache_write_prompt,
+    cache_write_token,
+    cached_decode_attention,
+    causal_attention,
+    take_rows,
+)
 from ray_tpu_torch.ops.fused_norm import (
     fused_rms_norm,
     fused_rms_norm_residual,
@@ -168,6 +176,14 @@ def _rope(x, theta: float):
     return out.to(x.dtype)
 
 
+def _expand_kv(t, cfg: LlamaConfig):
+    """GQA: each KV head serves ``n_head // n_kv_head`` consecutive query
+    heads -- ``repeat_interleave`` on the head axis, as ``jnp.repeat``
+    (``Tensor.repeat`` would tile the heads instead)."""
+    rep = cfg.n_head // cfg.n_kv_head
+    return t.repeat_interleave(rep, dim=2) if rep > 1 else t
+
+
 def _norm_residual(x, scale, cfg: LlamaConfig):
     """(RMSNorm(x), residual-skip x). With ``cfg.fused_norm`` the skip rides
     through the fused op so the residual-add gradient lands inside the one
@@ -189,15 +205,9 @@ def _block(x, p: Params, cfg: LlamaConfig):
     v = (y @ p["wv"].to(dt)).reshape(b, t, nkv, hd)
     q = _rope(q, cfg.rope_theta)
     k = _rope(k, cfg.rope_theta)
-    if nkv != nh:
-        # GQA: each KV head serves n_head // n_kv_head consecutive query
-        # heads -- jnp.repeat, i.e. repeat_interleave (Tensor.repeat would
-        # tile the heads instead). The result is contiguous, as the flash
-        # kernels take it.
-        rep = nh // nkv
-        k = k.repeat_interleave(rep, dim=2)
-        v = v.repeat_interleave(rep, dim=2)
-    attn = causal_attention(q, k, v, use_flash=cfg.use_flash)
+    # GQA; the result is contiguous, as the flash kernels take it.
+    attn = causal_attention(q, _expand_kv(k, cfg), _expand_kv(v, cfg),
+                            use_flash=cfg.use_flash)
     x = x_skip + attn.reshape(b, t, nh * hd) @ p["wo"].to(dt)
 
     y, x_skip = _norm_residual(x, p["mlp_norm"], cfg)
@@ -229,6 +239,109 @@ def llama_loss(params: Params, batch: dict, cfg: LlamaConfig):
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, targets[..., None])[..., 0]
     return torch.mean(lse - picked)
+
+
+# -- autoregressive decoding (serving path) --------------------------------
+#
+# The contract of the GPT-2 decode half (``models/gpt2.py``): one decode
+# step over a fixed slot batch and one chunked-prefill lane over a
+# slot-indexed ring cache. The cache keeps only the ``n_kv_head`` heads
+# (``[n_layer, slots, cache_len, n_kv_head, head_dim]`` in ``cfg.dtype``);
+# the query-head groups re-read the shared KV at attention time.
+
+
+def llama_init_cache(cfg: LlamaConfig, slots: int, cache_len: int, *,
+                     device=None) -> Params:  # decode-path
+    device = resolve_device(device)
+    shape = (cfg.n_layer, slots, cache_len, cfg.n_kv_head, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def _rope_at(x, pos, theta: float):
+    """Rotary embedding for ONE token per slot at its ABSOLUTE position
+    (not the ring cursor): x [S, H, D], pos [S] int."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = pos.float()[:, None] * freqs[None, :]  # [S, half]
+    cos = torch.cos(angles)[:, None, :]  # [S, 1, half]
+    sin = torch.sin(angles)[:, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _decode_mlp(x, p: Params, dt):
+    """The second half of a block: x + SwiGLU(RMSNorm(x))."""
+    y = _rms_norm(x, p["mlp_norm"])
+    gate = y @ p["w_gate"].to(dt)
+    up = y @ p["w_up"].to(dt)
+    return x + (F.silu(gate) * up) @ p["w_down"].to(dt)
+
+
+def _logits(x, params: Params, dt):
+    """fp32 logits from the bf16-cast operands (the upcast is exact)."""
+    x = _rms_norm(x, params["final_norm"])
+    return x.float() @ params["lm_head"].to(dt).float()
+
+
+def llama_decode_step(params: Params, cache: Params, tokens, pos,
+                      cfg: LlamaConfig):
+    """One decode iteration for every slot: tokens [S] int, pos [S] int ->
+    (logits [S, V] fp32, cache), the cache updated in place. See
+    ``gpt2_decode_step`` for the ring-cursor and mask contract."""
+    s = tokens.shape[0]
+    nh, nkv, hd = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    cache_len = cache["k"].shape[2]
+    dt = cfg.dtype
+    cursor = pos % cache_len
+    valid = (pos + 1).clamp(max=cache_len)
+    x = take_rows(params["embed"], tokens).to(dt)  # [S, D]
+    for i in range(cfg.n_layer):
+        p = {k: v[i] for k, v in params["blocks"].items()}
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+        y = _rms_norm(x, p["attn_norm"])
+        q = _rope_at((y @ p["wq"].to(dt)).reshape(s, nh, hd), pos,
+                     cfg.rope_theta)
+        k_new = _rope_at((y @ p["wk"].to(dt)).reshape(s, nkv, hd), pos,
+                         cfg.rope_theta)
+        v_new = (y @ p["wv"].to(dt)).reshape(s, nkv, hd)
+        cache_write_token(k_cache, k_new[:, None], cursor)
+        cache_write_token(v_cache, v_new[:, None], cursor)
+        attn = cached_decode_attention(q, _expand_kv(k_cache, cfg),
+                                       _expand_kv(v_cache, cfg), valid, dt)
+        x = x + attn.reshape(s, nh * hd) @ p["wo"].to(dt)
+        x = _decode_mlp(x, p, dt)
+    return _logits(x, params, dt), cache
+
+
+def llama_prefill(params: Params, cache: Params, tokens, slots, lengths,
+                  cfg: LlamaConfig):
+    """Chunked-prefill lane (fixed [R, P] shape): the causal forward over
+    the padded prompts with dense attention, K/V written into each row's
+    target slot in place, logits at each prompt's last real token. Same
+    pad-garbage contract as ``gpt2_prefill``."""
+    r, p_len = tokens.shape
+    nh, nkv, hd = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    dt = cfg.dtype
+    x = take_rows(params["embed"], tokens).to(dt)
+    for i in range(cfg.n_layer):
+        p = {k: v[i] for k, v in params["blocks"].items()}
+        y = _rms_norm(x, p["attn_norm"])
+        q = _rope((y @ p["wq"].to(dt)).reshape(r, p_len, nh, hd),
+                  cfg.rope_theta)
+        k_ = _rope((y @ p["wk"].to(dt)).reshape(r, p_len, nkv, hd),
+                   cfg.rope_theta)
+        v_ = (y @ p["wv"].to(dt)).reshape(r, p_len, nkv, hd)
+        cache_write_prompt(cache["k"][i], k_, slots)
+        cache_write_prompt(cache["v"][i], v_, slots)
+        attn = causal_attention(q, _expand_kv(k_, cfg), _expand_kv(v_, cfg),
+                                use_flash=False)
+        x = x + attn.reshape(r, p_len, nh * hd) @ p["wo"].to(dt)
+        x = _decode_mlp(x, p, dt)
+    last = x[torch.arange(r, device=x.device), (lengths - 1).clamp(0, p_len - 1)]
+    return _logits(last, params, dt), cache
 
 
 def llama_flops_per_token(cfg: LlamaConfig,

@@ -1,4 +1,4 @@
-"""Causal attention, training half (port of ``ray_tpu/ops/attention.py:29-73``).
+"""Attention ops (port of ``ray_tpu/ops/attention.py``).
 
 ``causal_attention`` dispatches between:
 
@@ -13,6 +13,12 @@
 The choice is made before anything is launched. Unlike the JAX package,
 nothing falls back to dense after a flash call fails: a request the kernels
 cannot take raises.
+
+The serving half (``cache_write_token``, ``cache_write_prompt``,
+``cached_decode_attention``) is shared by both models' decode steps; it is
+plain PyTorch, as the reference is plain XLA. The cache writes update the
+cache in place (the reference's donated buffer), with index writes that a
+CUDA graph captures.
 """
 
 from __future__ import annotations
@@ -64,3 +70,56 @@ def causal_attention(q, k, v, *, softmax_scale: float | None = None,
     if use_flash:
         return flash_causal_attention(q, k, v, softmax_scale=softmax_scale)
     return dense_causal_attention(q, k, v, softmax_scale=softmax_scale)
+
+
+# -- KV-cache writes and cached attention (serving decode path) -------------
+
+
+def take_rows(table, idx):
+    """``table[idx]`` with the JAX package's gather semantics, for token
+    ids from outside the program: a negative index wraps once, then every
+    index is clamped into ``[0, len(table))``. A raw out-of-range index
+    would raise on the CPU and trip a device-side assert on the GPU, which
+    leaves the CUDA context unusable for the whole engine."""
+    n = table.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    return table[idx]
+
+
+def cache_write_token(cache, rows, cursor):
+    """Per-slot ring-cursor write of ONE token's K or V rows, in place.
+
+    cache [S, L, H, hd], rows [S, 1, H, hd], cursor [S] int -- each slot's
+    row lands at its own cursor (``cursor`` < L). Returns ``cache``."""
+    slots = torch.arange(cache.shape[0], device=cache.device)
+    cache[slots, cursor] = rows[:, 0].to(cache.dtype)
+    return cache
+
+
+def cache_write_prompt(cache, rows, slots):
+    """Prefill-lane write, in place: row block ``rows[i]`` ([P, H, hd])
+    lands at rows ``[0, P)`` of cache slot ``slots[i]``. Returns ``cache``.
+
+    One vectorised write where the reference loops in order: the engine's
+    rows target distinct slots, except the unused rows, which all target
+    its scratch slot -- there the write that wins is unspecified, and
+    nothing reads that slot."""
+    cache[slots, :rows.shape[1]] = rows.to(cache.dtype)
+    return cache
+
+
+def cached_decode_attention(q, k, v, valid, out_dtype):
+    """One query token per slot over the slot's ring-cache window.
+
+    q [S, H, hd]; k, v [S, L, H, hd] (GQA callers expand the KV heads to
+    the query heads first); valid [S] = live cache entries (the ring
+    mask). Scores and softmax in fp32 on the upcast operands, masked
+    places at -1e30; the output cast to ``out_dtype``."""
+    hd = q.shape[-1]
+    scores = torch.einsum("shd,slhd->shl", q.float(), k.float()) / hd ** 0.5
+    mask = (torch.arange(k.shape[1], device=k.device)[None, :]
+            < valid[:, None])  # [S, L]
+    weights = torch.softmax(
+        torch.where(mask[:, None, :], scores, -1e30), dim=-1)
+    out = torch.einsum("shl,slhd->shd", weights, v.float())
+    return out.to(out_dtype)

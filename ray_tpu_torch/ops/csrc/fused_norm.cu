@@ -760,37 +760,46 @@ __global__ void __launch_bounds__(kSumGroups * 32)
 // the saved pre-activation instead of reading a saved fp32 tanh.
 // Bound: bytes, 2*n*sizeof(T) forward, 3*n*sizeof(T) backward.
 // ---------------------------------------------------------------------------
+// tanh(u) as 1 - 2 / (1 + e^(2u)) with the fast exp and division, in both
+// GELU kernels: an absolute error of the order of fp32's 6e-8 near 1 (an
+// overflowing e^(2u) gives 1 exactly), which the fp32 checks (1e-5 forward,
+// 1e-4 backward) and the bf16 one (one ulp) hold. At [8192, 3072] bf16 on
+// an H100 it took 1 us off gelu_bwd and 1.8 us off gelu_fwd against tanhf;
+// in fp32 gelu_fwd it was level with tanhf, within 1% (PERF.md, PRs 7-8).
+__device__ __forceinline__ float exp_tanh(float u) {
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * u));
+}
+
 __device__ __forceinline__ float gelu_f(float x) {
-  const float t = tanhf(kGeluC * (x + kGeluA * x * x * x));
+  const float t = exp_tanh(kGeluC * (x + kGeluA * x * x * x));
   return 0.5f * x * (1.f + t);
 }
 
-// tanh(u) as 1 - 2 / (1 + e^(2u)) with the fast exp and division: an
-// absolute error of the order of fp32's 6e-8 near 1 (an overflowing
-// e^(2u) gives 1 exactly), which the fp32 check (1e-4) and the bf16 one
-// (one ulp) hold, and 1 us faster than tanhf in gelu_bwd at [8192, 3072]
-// bf16 on an H100 (PERF.md). gelu_f keeps tanhf.
 __device__ __forceinline__ float gelu_grad_f(float x) {
-  const float u = kGeluC * (x + kGeluA * x * x * x);
-  const float t = 1.f - __fdividef(2.f, 1.f + __expf(2.f * u));
+  const float t = exp_tanh(kGeluC * (x + kGeluA * x * x * x));
   const float du = kGeluC * (1.f + 3.f * kGeluA * x * x);
   return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * du;
 }
 
-// gelu_fwd: a grid-stride pass over VEC-element packs (16 bytes when the
-// length and the pointers allow it).
+// gelu_fwd: gelu_bwd's geometry (below) with one input: a grid that covers
+// the n_vec = n / VEC packs once, one pack a thread, 128 threads a CTA; the
+// threads past the last pack take the n % VEC elements after it, one each.
 template <typename T, int VEC>
-__global__ void gelu_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
-                                int64_t n_vec) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_vec;
-       i += stride) {
-    float v[VEC];
-    load<T, VEC>(x + i * VEC, v);
+__global__ void __launch_bounds__(kGeluThreads)
+    gelu_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n) {
+  using P = Pack<T, VEC>;
+  const int64_t n_vec = n / VEC;
+  const int64_t i = (int64_t)blockIdx.x * kGeluThreads + threadIdx.x;
+  if (i < n_vec) {
+    const P xv = reinterpret_cast<const P*>(x)[i];
+    P o;
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) v[j] = gelu_f(v[j]);
-    store<T, VEC>(y + i * VEC, v);
+    for (int j = 0; j < VEC; ++j) o.v[j] = from_f<T>(gelu_f(to_f(xv.v[j])));
+    reinterpret_cast<P*>(y)[i] = o;
+    return;
   }
+  const int64_t e = n_vec * VEC + (i - n_vec);
+  if (e < n) y[e] = from_f<T>(gelu_f(to_f(x[e])));
 }
 
 // gelu_bwd: one pass, with a grid that covers the n_vec = n / VEC packs
@@ -1033,51 +1042,39 @@ cudaError_t rms_bwd_launch(const void* x, const void* rstd, const void* scale,
   return cudaGetLastError();
 }
 
-// The device's SM count, read once a process (at the first GELU forward).
-int sm_count() {
-  static const int sms = [] {
-    int dev = 0, n = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n;
-  }();
-  return sms;
-}
-
-int elementwise_grid(int64_t n_vec, int threads) {
-  const int64_t want = (n_vec + threads - 1) / threads;
-  const int64_t cap = (int64_t)sm_count() * 16;
-  return (int)(want < cap ? want : cap);
+// Threads of a one-pack-a-thread GELU launch: one a 16-byte pack where
+// the pointers allow it, whatever the length (the threads past the last
+// whole pack take the elements after it); one an element otherwise.
+int64_t gelu_grid(int64_t n, int vec_elems) {
+  const int64_t threads = n / vec_elems + n % vec_elems;
+  return (threads + kGeluThreads - 1) / kGeluThreads;
 }
 
 template <typename T>
 cudaError_t gelu_fwd_launch(const void* x, void* y, int64_t n,
                             cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
-  constexpr int kThreads = 256;
-  const bool vec = n % V == 0 && aligned16(x) && aligned16(y);
-  const int64_t n_vec = vec ? n / V : n;
-  const int grid = elementwise_grid(n_vec, kThreads);
+  const bool vec = aligned16(x) && aligned16(y);
+  const int64_t grid = gelu_grid(n, vec ? V : 1);
+  if (grid > INT32_MAX) return cudaErrorInvalidValue;
   const T* xs = static_cast<const T*>(x);
   T* ys = static_cast<T*>(y);
   if (vec)
-    gelu_fwd_kernel<T, V><<<grid, kThreads, 0, stream>>>(xs, ys, n_vec);
+    gelu_fwd_kernel<T, V><<<(unsigned)grid, kGeluThreads, 0, stream>>>(xs, ys,
+                                                                        n);
   else
-    gelu_fwd_kernel<T, 1><<<grid, kThreads, 0, stream>>>(xs, ys, n_vec);
+    gelu_fwd_kernel<T, 1><<<(unsigned)grid, kGeluThreads, 0, stream>>>(xs, ys,
+                                                                        n);
   return cudaGetLastError();
 }
 
-// gelu_bwd: 16-byte packs where all three pointers allow it, whatever the
-// length (the threads past the last whole pack take the elements after
-// it); one element a pack otherwise.
+// gelu_bwd: 16-byte packs where all three pointers allow it.
 template <typename T>
 cudaError_t gelu_bwd_launch(const void* x, const void* g, void* dx, int64_t n,
                             cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = aligned16(x) && aligned16(g) && aligned16(dx);
-  // Threads: one a pack, then one for each element past the last pack.
-  const int64_t threads = vec ? n / V + n % V : n;
-  const int64_t grid = (threads + kGeluThreads - 1) / kGeluThreads;
+  const int64_t grid = gelu_grid(n, vec ? V : 1);
   if (grid > INT32_MAX) return cudaErrorInvalidValue;
   const T* xs = static_cast<const T*>(x);
   const T* gs = static_cast<const T*>(g);

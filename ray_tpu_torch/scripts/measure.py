@@ -1,15 +1,20 @@
-"""Train-step throughput-measurement harness (port of
-``ray_tpu/scripts/measure.py``).
+"""Throughput-measurement harness (port of ``ray_tpu/scripts/measure.py``).
 
 One definition of the timed-step protocol (warmup, a device sync, timed
 steps, tok/s and MFU accounting), shared by ``measure_gpt2`` and
-``measure_llama``, and the per-device peak table that MFU is taken against.
+``measure_llama``, and the per-device peak table that MFU is taken against;
+``measure_serve`` is their serving counterpart, over ``LLMEngine``, and
+``serve_vs_naive`` holds the engine's greedy tokens against the model's
+full-forward loop.
 """
 
 from __future__ import annotations
 
+import statistics
+import threading
 import time
 
+import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
@@ -152,3 +157,231 @@ def measure_llama(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
                     lambda p, b: llama_loss(p, b, cfg), cfg.vocab_size,
                     cfg.seq_len, llama_flops_per_token(cfg), batch, steps,
                     warmup, device)
+
+
+# The serving engines' settings at full width, by family: 32 slots, a ring
+# cache of the model's window (GPT-2 1024, Llama 2048), a prefill lane of 4
+# rows of 128 / 256 tokens; prompts drawn over 16..128 / 16..256 tokens.
+SERVE_ENGINES = {
+    "gpt2": dict(max_batch=32, cache_len=1024, max_prompt_len=128,
+                 prefill_rows=4),
+    "llama": dict(max_batch=32, cache_len=2048, max_prompt_len=256,
+                  prefill_rows=4),
+}
+SERVE_PROMPT_MIN = 16
+
+
+def serve_prompts(n: int, vocab_size: int, max_len: int, seed: int = 3):
+    """``n`` prompts of random tokens, lengths uniform over
+    [SERVE_PROMPT_MIN, max_len], from ``seed``."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(SERVE_PROMPT_MIN, max_len + 1, n)
+    return [rng.integers(0, vocab_size, int(k)).tolist() for k in lengths]
+
+
+def _median_ms(fn, device, reps: int) -> float:
+    """Median host wall ms of ``fn`` followed by a device sync."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _step_inputs(eng, seed: int):
+    """Random decode-step inputs (host arrays) for every slot."""
+    rng = np.random.default_rng(seed)
+    n = eng.max_batch + 1
+    return (rng.integers(0, eng._cfg.vocab_size, n),
+            rng.integers(0, eng.cache_len, n))
+
+
+def decode_graph_vs_eager(eng, seed: int = 5) -> dict:
+    """One decode step replayed from the engine's graph and the same step
+    function called eagerly, from one cache snapshot and one input
+    (random tokens and positions); the cache is restored after each.
+    Returns {tokens_equal, logits_max_abs_diff}. The engine must be idle."""
+    tokens, pos = _step_inputs(eng, seed)
+    snap = {k: v.clone() for k, v in eng._cache.items()}
+    out = {}
+    for eager in (False, True):
+        nxt, logits = eng.run_decode_step(tokens, pos, eager=eager)
+        out[eager] = (nxt.cpu(), logits.float().cpu())
+        for k, v in snap.items():
+            eng._cache[k].copy_(v)
+    return {"tokens_equal": bool(torch.equal(out[False][0], out[True][0])),
+            "logits_max_abs_diff": float(
+                (out[False][1] - out[True][1]).abs().max())}
+
+
+def _collect(eng, rids, t_submit):
+    """Drain every stream on its own thread; returns per request (first
+    token wall s after ``t_submit``, tokens, error)."""
+    results = [None] * len(rids)
+
+    def one(i, rid):
+        first, toks, err = None, [], None
+        deadline = time.monotonic() + 600.0
+        while time.monotonic() < deadline:
+            resp = eng.llm_next(rid, timeout_s=5.0)
+            if resp["chunks"] and first is None:
+                first = time.perf_counter() - t_submit
+            for chunk in resp["chunks"]:
+                toks.extend(chunk)
+            if resp["done"]:
+                err = resp["shed"] or resp["error"]
+                break
+        results[i] = (first, toks, err)
+
+    threads = [threading.Thread(target=one, args=(i, rid), daemon=True)
+               for i, rid in enumerate(rids)]
+    for t in threads:
+        t.start()
+    return threads, results
+
+
+def measure_serve(model: str, preset: str = "small", *, requests: int = 64,
+                  max_new_tokens: int = 64, config=None, device=None,
+                  reps: int = 20, seed: int = 0, **engine_kw) -> dict:
+    """Serve ``requests`` random prompts (``serve_prompts``, seed 3) of
+    ``max_new_tokens`` each, no eos, through one ``LLMEngine`` of family
+    ``model`` (``SERVE_ENGINES`` settings unless overridden), and measure:
+
+    - ``decode_tok_s_full``: decode tokens a second while every slot was
+      busy (from the first to the last sample of the engine's counters,
+      taken every 2 ms, that saw all ``max_batch`` slots active; the
+      window includes the prefills admitted within it), and
+      ``serve_tok_s``, all tokens over the whole run's wall time;
+    - ``step_ms_graph`` / ``step_ms_eager``: the decode step's median wall
+      ms (input copy, step, device sync) replayed from its graph and
+      called eagerly, at random tokens and positions; ``prefill_ms_graph``
+      / ``prefill_ms_eager`` the same for the prefill lane;
+    - ``ttft_ms_p50`` / ``ttft_ms_p99``: submit to first token, per
+      request on the client's clock, all requests submitted at once;
+    - ``peak_memory_bytes``: ``torch.cuda.max_memory_allocated`` from
+      before the engine's construction (on a GPU);
+    - ``graph_vs_eager``: ``decode_graph_vs_eager`` after the run.
+    Also: every request's token count, ``compiles``, the engine's stats.
+    The step times are taken before the requests, on an idle engine."""
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+    device = resolve_device(device)
+    kw = {**SERVE_ENGINES[model], **engine_kw}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    eng = LLMEngine(model=model, config=config, preset=preset, seed=seed,
+                    max_new_tokens=max_new_tokens, max_new_cap=max_new_tokens,
+                    device=device, **kw)
+    build_s = time.perf_counter() - t0
+    try:
+        tokens, pos = _step_inputs(eng, seed + 1)
+        rows, p_len = eng.prefill_rows, eng.max_prompt_len
+        p_tokens = np.ones((rows, p_len), np.int64)
+        p_slots = np.full(rows, eng.max_batch, np.int64)  # the scratch slot
+        p_lengths = np.full(rows, p_len, np.int64)
+        times = {}
+        for eager in (False, True):
+            tag = "eager" if eager else "graph"
+            times[f"step_ms_{tag}"] = _median_ms(
+                lambda: eng.run_decode_step(tokens, pos, eager=eager),
+                device, reps)
+            times[f"prefill_ms_{tag}"] = _median_ms(
+                lambda: eng.run_prefill(p_tokens, p_slots, p_lengths,
+                                        eager=eager), device, reps)
+        prompts = serve_prompts(requests, eng._cfg.vocab_size,
+                                eng.max_prompt_len)
+        t_submit = time.perf_counter()
+        rids = eng.llm_submit_many([{"tokens": p} for p in prompts])
+        threads, results = _collect(eng, rids, t_submit)
+        samples = []
+        while any(t.is_alive() for t in threads):
+            eng.check_health()
+            st = eng.llm_stats()
+            samples.append((time.perf_counter(), st["active"],
+                            st["occupancy_sum"], st["steps"]))
+            time.sleep(0.002)
+        wall = time.perf_counter() - t_submit
+        for t in threads:
+            t.join()
+        full = [s for s in samples if s[1] == eng.max_batch]
+        window = full[-1][0] - full[0][0] if len(full) > 1 else 0.0
+        stats = eng.llm_stats()
+        ttft = sorted(r[0] * 1e3 for r in results if r[0] is not None)
+        out = {
+            "model": model, "preset": preset, "device": device_name(device),
+            "dtype": str(eng._cfg.dtype).split(".")[-1],
+            "n_params": eng._cfg.n_params, **kw,
+            "requests": requests, "max_new_tokens": max_new_tokens,
+            "prompt_tokens": sum(len(p) for p in prompts),
+            "build_s": build_s, **times,
+            "decode_tok_s_full": (full[-1][2] - full[0][2]) / window
+            if window > 0 else None,
+            "full_window_steps": full[-1][3] - full[0][3] if full else 0,
+            "serve_tok_s": stats["tokens_out"] / wall, "wall_s": wall,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)) if ttft else None,
+            "ttft_ms_p99": float(np.percentile(ttft, 99)) if ttft else None,
+            "tokens_per_request": [len(r[1]) for r in results],
+            "errors": [r[2] for r in results if r[2]],
+            "compiles": stats["compiles"], "stats": stats,
+            "graph_vs_eager": decode_graph_vs_eager(eng),
+        }
+    finally:
+        eng.shutdown_engine()
+    if device.type == "cuda":
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    del eng
+    return out
+
+
+def serve_vs_naive(model: str, config, *, prompts, n_tokens: int = 8,
+                   device=None, seed: int = 0, **engine_kw) -> dict:
+    """The engine's greedy tokens for ``prompts`` (submitted together)
+    against the model's naive loop (full-context ``*_forward`` + argmax a
+    token) on the engine's own weights. Compares up to the first step
+    where the naive loop's top-2 logit gap is under 1e-4 * max(1, |top
+    logit|) (a near tie, where summation order may pick either).
+    Returns {match, compared (tokens compared over all prompts), min_gap,
+    prompts: per prompt {engine, naive, gaps, compared, error}}."""
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+    device = resolve_device(device)
+    forward = gpt2.gpt2_forward if model == "gpt2" else llama.llama_forward
+    kw = {**SERVE_ENGINES[model], **engine_kw}
+    eng = LLMEngine(model=model, config=config, seed=seed,
+                    max_new_tokens=n_tokens, device=device, **kw)
+    try:
+        rids = eng.llm_submit_many([{"tokens": p} for p in prompts])
+        threads, results = _collect(eng, rids, time.perf_counter())
+        while any(t.is_alive() for t in threads):
+            eng.check_health()
+            time.sleep(0.01)
+        rows, match, compared, min_gap = [], True, 0, float("inf")
+        with torch.no_grad():
+            for p, (_, got, err) in zip(prompts, results):
+                toks, gaps, tie = list(p), [], n_tokens
+                for i in range(n_tokens):
+                    logits = forward(eng.params, torch.tensor([toks],
+                                                              device=device),
+                                     eng._cfg)[0, -1].float()
+                    top2 = logits.topk(2).values
+                    gap = float(top2[0] - top2[1])
+                    gaps.append(gap)
+                    if tie == n_tokens and gap < 1e-4 * max(
+                            1.0, abs(float(top2[0]))):
+                        tie = i  # a near tie: either token may win
+                    toks.append(int(logits.argmax()))
+                want = toks[len(p):]
+                match &= (err is None and len(got) == n_tokens
+                          and got[:tie] == want[:tie])
+                compared += tie
+                min_gap = min(min_gap, min(gaps))
+                rows.append({"engine": got, "naive": want, "gaps": gaps,
+                             "compared": tie, "error": err})
+    finally:
+        eng.shutdown_engine()
+    return {"match": match, "compared": compared, "min_gap": min_gap,
+            "prompts": rows}

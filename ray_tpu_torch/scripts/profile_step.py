@@ -1,4 +1,4 @@
-"""Where a train step's device time goes.
+"""Where a train step's (or a serving decode step's) device time goes.
 
 Profiles ``--steps`` train steps of a GPT-2 or Llama config on one GPU
 with ``torch.profiler`` (after warmup steps and as many unprofiled, timed
@@ -15,7 +15,11 @@ the kernels they launched themselves.
 ``flash`` (the default) is GPT-2 small with ``measure.FUSED_FLAGS``,
 ``dense`` the same with ``measure.FUSED_DENSE_FLAGS`` (both batch 8 unless
 ``--batch``); ``llama`` is ``LlamaConfig.small()`` with
-``measure.LLAMA_FLAGS`` (batch 4 unless ``--batch``). Needs a CUDA device.
+``measure.LLAMA_FLAGS`` (batch 4 unless ``--batch``). ``serve-gpt2`` and
+``serve-llama`` profile ``--steps`` replays of an ``LLMEngine``'s captured
+decode step (``measure.SERVE_ENGINES`` settings, 32 slots, random tokens
+and positions), each replay followed by the step's device sync, with no
+request in flight. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ def classify(name: str) -> str:
 
 
 DEFAULT_BATCH = {"flash": 8, "dense": 8, "llama": 4}
+SERVE_CONFIGS = ("serve-gpt2", "serve-llama")
 
 
 def _model(config: str):
@@ -88,12 +93,56 @@ def profile_step(batch: int | None = None, steps: int = 2, warmup: int = 2,
         state, _ = step_fn(state, {"tokens": tokens})
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
+    return _profile(lambda: step_fn(state, {"tokens": tokens}), steps,
+                    plain_wall, {"config": config, "batch": batch})
+
+
+def profile_decode(model: str, steps: int = 20, warmup: int = 3) -> dict:
+    """``steps`` replays of an ``LLMEngine``'s captured decode step (after
+    ``warmup`` and as many unprofiled, timed replays), each followed by a
+    sync, as the engine's loop does."""
+    from ray_tpu_torch.scripts.measure import SERVE_ENGINES, _step_inputs
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+    eng = LLMEngine(model=model, preset="small", device="cuda",
+                    **SERVE_ENGINES[model])
+    try:
+        tokens, pos = _step_inputs(eng, 1)
+
+        def step():
+            eng.run_decode_step(tokens, pos)[0].cpu()
+
+        for _ in range(warmup):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        plain_wall = time.perf_counter() - t0
+        # The replays' device span by CUDA events: a second reading of the
+        # busy share, should the profiler not see inside the graph.
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(steps):
+            step()
+        end.record()
+        end.synchronize()
+        return _profile(step, steps, plain_wall,
+                        {"config": f"serve-{model}",
+                         "batch": eng.max_batch + 1,
+                         "event_ms_per_step": start.elapsed_time(end) / steps})
+    finally:
+        eng.shutdown_engine()
+
+
+def _profile(step, steps: int, plain_wall: float, head: dict) -> dict:
+    """Profile ``steps`` calls of ``step`` and summarise the kernels."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, _ = step_fn(state, {"tokens": tokens})
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -115,9 +164,8 @@ def profile_step(batch: int | None = None, steps: int = 2, warmup: int = 2,
                   and e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:15]
     return {
-        "device": torch.cuda.get_device_name(device),
-        "config": config,
-        "batch": batch,
+        "device": torch.cuda.get_device_name(),
+        **head,
         "steps": steps,
         "ms_per_step": plain_wall * 1e3 / steps,
         "profiled_ms_per_step": wall * 1e3 / steps,
@@ -138,7 +186,7 @@ def profile_step(batch: int | None = None, steps: int = 2, warmup: int = 2,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=tuple(DEFAULT_BATCH),
+    ap.add_argument("--config", choices=tuple(DEFAULT_BATCH) + SERVE_CONFIGS,
                     default="flash")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--steps", type=int, default=2)
@@ -146,7 +194,10 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
-    result = profile_step(args.batch, args.steps, config=args.config)
+    if args.config in SERVE_CONFIGS:
+        result = profile_decode(args.config.split("-")[1], args.steps)
+    else:
+        result = profile_step(args.batch, args.steps, config=args.config)
     text = json.dumps(result, indent=1)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -44,6 +44,14 @@ SLICE_MODULES = [
     "ray_tpu_torch.scripts.flash_bench",
     "ray_tpu_torch.scripts.measure",
     "ray_tpu_torch.scripts.profile_step",
+    "ray_tpu_torch.util",
+    "ray_tpu_torch.util.metrics",
+    "ray_tpu_torch.util.tracing",
+    "ray_tpu_torch.util.failpoints",
+    "ray_tpu_torch.util.goodput",
+    "ray_tpu_torch.serve",
+    "ray_tpu_torch.serve._observability",
+    "ray_tpu_torch.serve.llm_engine",
 ]
 
 
@@ -79,7 +87,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from ray_tpu_torch.models.convert import params_from_numpy
     from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
     from ray_tpu_torch.models.llama import LlamaConfig, llama_init
-    from ray_tpu_torch.scripts.measure import measure_gpt2, measure_llama
+    from ray_tpu_torch.scripts.measure import (measure_gpt2, measure_llama,
+                                               measure_serve)
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
 
     _no_cuda(monkeypatch)
     cfg = GPT2Config.tiny()
@@ -95,6 +105,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         llama_init(torch.Generator(), LlamaConfig.tiny())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         measure_llama(LlamaConfig.tiny(), 1, steps=1, warmup=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LLMEngine()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        measure_serve("gpt2", "tiny")
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -507,6 +521,24 @@ def test_gelu_bwd_takes_any_length_and_alignment(cuda, dtype, n, shift):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,shift", [(100, 0), (1001, 0), (8199, 0),
+                                     (65536 + 5, 0), (3 * 8192, 0),
+                                     (1001, 1), (65536 + 5, 1)])
+def test_gelu_fwd_takes_any_length_and_alignment(cuda, dtype, n, shift):
+    """gelu_fwd's one-shot grid against the plain version, at the lengths
+    and alignments of test_gelu_bwd_takes_any_length_and_alignment."""
+    g = torch.Generator(device=cuda).manual_seed(n + shift)
+    x = (2 * torch.randn(n + shift, device=cuda, generator=g)).to(dtype)[shift:]
+    assert (x.data_ptr() % 16 != 0) == bool(shift)
+    before = fn.KERNEL_INVOCATIONS["gelu_fwd"]
+    got = fn.gelu_fwd(x)
+    torch.cuda.synchronize()
+    assert fn.KERNEL_INVOCATIONS["gelu_fwd"] == before + 1
+    _check(got, fn.ref_gelu(x), 1e-5)
+
+
+@pytest.mark.gpu
 def test_autograd_through_kernels_matches_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(4, 16, 768, device=cuda, generator=g)
@@ -697,3 +729,46 @@ def test_flash_fwd_and_dkv_are_deterministic(cuda, kernel, d):
         runs.append((out, lse, *_bwd(kernel, q, k, v, do, lse, delta, kw)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# -- on a GPU: the serving engine ---------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["gpt2", "llama"])
+def test_decode_graph_replay_matches_eager_step(cuda, model):
+    """One decode step replayed from the captured graph and the same step
+    called eagerly, from one cache snapshot and input: the same tokens."""
+    from ray_tpu_torch.scripts.measure import decode_graph_vs_eager
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+    eng = LLMEngine(model=model, preset="tiny", max_batch=4, cache_len=32,
+                    max_prompt_len=8, device=cuda)
+    try:
+        assert len(eng.generate([5, 9, 2, 17, 3], 6)) == 6
+        check = decode_graph_vs_eager(eng)
+        assert check["tokens_equal"], check
+        assert eng.llm_stats()["compiles"] == {"decode": 1, "prefill": 1}
+    finally:
+        eng.shutdown_engine()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["gpt2", "llama"])
+def test_engine_on_cuda_matches_naive_loop(cuda, model):
+    """The engine on the GPU (graphs) gives the tokens of the model's
+    naive full-forward loop at fp32 tiny, up to a near tie."""
+    import dataclasses
+
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.scripts.measure import serve_prompts, serve_vs_naive
+
+    cfg = (GPT2Config if model == "gpt2" else LlamaConfig).tiny()
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    res = serve_vs_naive(model, cfg, prompts=serve_prompts(4, cfg.vocab_size,
+                                                           16),
+                         n_tokens=8, device=cuda, max_batch=4, cache_len=32,
+                         max_prompt_len=16, prefill_rows=2)
+    assert res["match"], res
+    assert res["compared"] >= 16, res
