@@ -5,13 +5,14 @@ steps, tok/s and MFU accounting), shared by ``measure_gpt2`` and
 ``measure_llama``, and the per-device peak table that MFU is taken against;
 ``measure_serve`` is their serving counterpart, over ``LLMEngine``, and
 ``serve_vs_naive`` holds the engine's greedy tokens against the model's
-full-forward loop.
+full-forward loop, and ``served_vs_fp32`` the engine's logits at its
+served dtype against an fp32 copy of it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import statistics
-import threading
 import time
 
 import numpy as np
@@ -202,44 +203,48 @@ def decode_graph_vs_eager(eng, seed: int = 5) -> dict:
     """One decode step replayed from the engine's graph and the same step
     function called eagerly, from one cache snapshot and one input
     (random tokens and positions); the cache is restored after each.
-    Returns {tokens_equal, logits_max_abs_diff}. The engine must be idle."""
+    Returns {tokens_equal, logits_max_abs_diff}. The engine must be idle
+    (``run_decode_step`` raises otherwise)."""
     tokens, pos = _step_inputs(eng, seed)
     snap = {k: v.clone() for k, v in eng._cache.items()}
     out = {}
     for eager in (False, True):
-        nxt, logits = eng.run_decode_step(tokens, pos, eager=eager)
-        out[eager] = (nxt.cpu(), logits.float().cpu())
+        nxt, logits = eng.run_decode_step(tokens, pos, eager=eager,
+                                          logits=True)
+        out[eager] = (nxt, logits.float().cpu())
         for k, v in snap.items():
             eng._cache[k].copy_(v)
-    return {"tokens_equal": bool(torch.equal(out[False][0], out[True][0])),
+    return {"tokens_equal": bool(np.array_equal(out[False][0],
+                                                out[True][0])),
             "logits_max_abs_diff": float(
                 (out[False][1] - out[True][1]).abs().max())}
 
 
-def _collect(eng, rids, t_submit):
-    """Drain every stream on its own thread; returns per request (first
-    token wall s after ``t_submit``, tokens, error)."""
-    results = [None] * len(rids)
-
-    def one(i, rid):
-        first, toks, err = None, [], None
-        deadline = time.monotonic() + 600.0
-        while time.monotonic() < deadline:
-            resp = eng.llm_next(rid, timeout_s=5.0)
-            if resp["chunks"] and first is None:
-                first = time.perf_counter() - t_submit
+def _collect(eng, rids, t_submit, on_poll=None, timeout_s: float = 600.0):
+    """Drain every stream from this thread, one ``llm_poll`` of all live
+    streams every 0.5 ms, calling ``on_poll()`` after each; returns per
+    request (first token wall s after ``t_submit``, tokens, error)."""
+    first, toks, err = {}, {rid: [] for rid in rids}, {}
+    live = list(rids)
+    deadline = time.monotonic() + timeout_s
+    while live:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{len(live)} streams still open")
+        eng.check_health()
+        polled = eng.llm_poll(live)
+        now = time.perf_counter() - t_submit
+        for rid, resp in polled.items():
+            if resp["chunks"] and rid not in first:
+                first[rid] = now
             for chunk in resp["chunks"]:
-                toks.extend(chunk)
+                toks[rid].extend(chunk)
             if resp["done"]:
-                err = resp["shed"] or resp["error"]
-                break
-        results[i] = (first, toks, err)
-
-    threads = [threading.Thread(target=one, args=(i, rid), daemon=True)
-               for i, rid in enumerate(rids)]
-    for t in threads:
-        t.start()
-    return threads, results
+                err[rid] = resp["shed"] or resp["error"]
+        live = [rid for rid in live if rid not in err]
+        if on_poll is not None:
+            on_poll()
+        time.sleep(0.0005)
+    return [(first.get(rid), toks[rid], err[rid]) for rid in rids]
 
 
 def measure_serve(model: str, preset: str = "small", *, requests: int = 64,
@@ -251,8 +256,8 @@ def measure_serve(model: str, preset: str = "small", *, requests: int = 64,
 
     - ``decode_tok_s_full``: decode tokens a second while every slot was
       busy (from the first to the last sample of the engine's counters,
-      taken every 2 ms, that saw all ``max_batch`` slots active; the
-      window includes the prefills admitted within it), and
+      taken at each poll of the streams, that saw all ``max_batch`` slots
+      active; the window includes the prefills admitted within it), and
       ``serve_tok_s``, all tokens over the whole run's wall time;
     - ``step_ms_graph`` / ``step_ms_eager``: the decode step's median wall
       ms (input copy, step, device sync) replayed from its graph and
@@ -294,18 +299,16 @@ def measure_serve(model: str, preset: str = "small", *, requests: int = 64,
         prompts = serve_prompts(requests, eng._cfg.vocab_size,
                                 eng.max_prompt_len)
         t_submit = time.perf_counter()
-        rids = eng.llm_submit_many([{"tokens": p} for p in prompts])
-        threads, results = _collect(eng, rids, t_submit)
         samples = []
-        while any(t.is_alive() for t in threads):
-            eng.check_health()
+
+        def sample():
             st = eng.llm_stats()
             samples.append((time.perf_counter(), st["active"],
                             st["occupancy_sum"], st["steps"]))
-            time.sleep(0.002)
+
+        rids = eng.llm_submit_many([{"tokens": p} for p in prompts])
+        results = _collect(eng, rids, t_submit, on_poll=sample)
         wall = time.perf_counter() - t_submit
-        for t in threads:
-            t.join()
         full = [s for s in samples if s[1] == eng.max_batch]
         window = full[-1][0] - full[0][0] if len(full) > 1 else 0.0
         stats = eng.llm_stats()
@@ -355,10 +358,7 @@ def serve_vs_naive(model: str, config, *, prompts, n_tokens: int = 8,
                     max_new_tokens=n_tokens, device=device, **kw)
     try:
         rids = eng.llm_submit_many([{"tokens": p} for p in prompts])
-        threads, results = _collect(eng, rids, time.perf_counter())
-        while any(t.is_alive() for t in threads):
-            eng.check_health()
-            time.sleep(0.01)
+        results = _collect(eng, rids, time.perf_counter())
         rows, match, compared, min_gap = [], True, 0, float("inf")
         with torch.no_grad():
             for p, (_, got, err) in zip(prompts, results):
@@ -385,3 +385,61 @@ def serve_vs_naive(model: str, config, *, prompts, n_tokens: int = 8,
         eng.shutdown_engine()
     return {"match": match, "compared": compared, "min_gap": min_gap,
             "prompts": rows}
+
+
+def served_vs_fp32(model: str, config, *, prompts, device=None,
+                   seed: int = 0, **engine_kw) -> dict:
+    """The engine at ``config``'s dtype against an fp32 copy of it (same
+    seed, so the same fp32 weights), both idle: ``prompts`` (at most
+    ``prefill_rows``) through the prefill lane into slots 0.., then one
+    decode step at each prompt's next position, fed the fp32 copy's
+    first tokens in both. Returns the smallest per-prompt cosine of the
+    fp32 logits after the prefill and after the decode step, the K/V
+    cache's relative error (Frobenius, the larger of K and V) over the
+    prompts' slots after both, and how many first and next tokens agree
+    ({prefill_cosine, decode_cosine, cache_rel_err, first_agree,
+    next_agree, n})."""
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+    device = resolve_device(device)
+    kw = {**SERVE_ENGINES[model], **engine_kw}
+    n = len(prompts)
+    runs = {}
+    # The fp32 copy first: its first tokens feed both decode steps.
+    for name, cfg in (("fp32", dataclasses.replace(config,
+                                                    dtype=torch.float32)),
+                      ("served", config)):
+        eng = LLMEngine(model=model, config=cfg, seed=seed, device=device,
+                        **kw)
+        try:
+            rows, slots = eng.prefill_rows, eng.max_batch + 1
+            if n > rows:
+                raise ValueError(f"{n} prompts exceed {rows} prefill rows")
+            toks = np.zeros((rows, eng.max_prompt_len), np.int64)
+            p_slots = np.full(rows, eng.max_batch, np.int64)
+            lengths = np.ones(rows, np.int64)
+            for i, p in enumerate(prompts):
+                toks[i, :len(p)] = p
+                p_slots[i], lengths[i] = i, len(p)
+            first, p_logits = eng.run_prefill(toks, p_slots, lengths,
+                                              logits=True)
+            feed = runs["fp32"]["first"] if "fp32" in runs else first[:n]
+            tokens, pos = np.zeros(slots, np.int64), np.zeros(slots, np.int64)
+            tokens[:n], pos[:n] = feed, lengths[:n]
+            nxt, d_logits = eng.run_decode_step(tokens, pos, logits=True)
+            runs[name] = {"first": first[:n], "next": nxt[:n],
+                          "prefill": p_logits[:n].float().cpu(),
+                          "decode": d_logits[:n].float().cpu(),
+                          "cache": {k: v[:, :n].float().cpu()
+                                    for k, v in eng._cache.items()}}
+        finally:
+            eng.shutdown_engine()
+    a, b = runs["served"], runs["fp32"]
+    cos = {k: float(torch.nn.functional.cosine_similarity(
+        a[k], b[k], dim=-1).min()) for k in ("prefill", "decode")}
+    cache_err = max(float((a["cache"][k] - b["cache"][k]).norm()
+                          / b["cache"][k].norm()) for k in b["cache"])
+    return {"prefill_cosine": cos["prefill"], "decode_cosine": cos["decode"],
+            "cache_rel_err": cache_err,
+            "first_agree": int((a["first"] == b["first"]).sum()),
+            "next_agree": int((a["next"] == b["next"]).sum()), "n": n}

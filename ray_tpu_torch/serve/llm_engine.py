@@ -41,6 +41,7 @@ Left out against the reference: ``step_cost`` (the XLA cost model), the
 
 from __future__ import annotations
 
+import contextlib
 import heapq
 import os
 import threading
@@ -216,9 +217,10 @@ class LLMEngine:
         self._graphs = []
         self._step_fn = self._compile("decode")
         self._prefill_fn = self._compile("prefill")
-        # One device user at a time: the loop thread, or a caller of
-        # run_decode_step / run_prefill.
-        self._run_lock = threading.Lock()
+        # One device user at a time: the loop holds the gate for each
+        # admit-and-step iteration, a caller of run_decode_step /
+        # run_prefill for its call (and only while nothing is served).
+        self._gate = threading.Lock()
 
         self._slot_req: List[Optional[_Request]] = [None] * self.max_batch
         # Admission queue: a HEAP keyed (deadline slack, seq); expiry and
@@ -274,28 +276,63 @@ class LLMEngine:
 
         return replay
 
-    def run_decode_step(self, tokens, pos, *, eager: bool = False):
-        """One decode step on host arrays ``tokens``/``pos`` [max_batch+1]:
-        fill the static buffers, replay the captured step (or, with
-        ``eager``, call the same step function eagerly) and return the
-        device tensors (next tokens [max_batch+1], logits fp32). The
-        engine's loop runs it; a caller uses it to measure or check the
-        step, and then owns the cache rows it writes."""
-        with self._run_lock:
-            self._in["tokens"].copy_(torch.from_numpy(tokens))
-            self._in["pos"].copy_(torch.from_numpy(pos))
-            fn = self._bodies["decode"] if eager else self._step_fn
-            return fn()
+    def _run(self, name: str, inputs: dict, eager: bool = False,
+             logits: bool = False):
+        """Fill the static buffers from host ``inputs``, replay the
+        captured ``name`` step (or, with ``eager``, call the same step
+        function eagerly) and copy its tokens to the host: the step's one
+        sync. Returns (tokens, a copy of the fp32 logits when ``logits``
+        else None, perf_counter when the replay or call returned)."""
+        for key, arr in inputs.items():
+            self._in[key].copy_(torch.from_numpy(arr))
+        fn = self._bodies[name] if eager else (
+            self._step_fn if name == "decode" else self._prefill_fn)
+        nxt, out = fn()
+        t_dispatch = time.perf_counter()
+        out = out.clone() if logits else None
+        return nxt.cpu().numpy(), out, t_dispatch
 
-    def run_prefill(self, tokens, slots, lengths, *, eager: bool = False):
+    @contextlib.contextmanager
+    def _idle(self):
+        """Hold the loop off while a caller drives a step itself; raises
+        unless nothing is active or queued (the caller's step writes K/V
+        rows into every slot)."""
+        def check():
+            with self._lock:
+                if any(r is not None for r in self._slot_req) \
+                        or self._n_queued:
+                    raise RuntimeError(
+                        "engine is serving: run_decode_step / run_prefill "
+                        "need an idle engine")
+
+        # Checked before the gate too: a busy loop re-takes the gate at
+        # once, so a waiter may only get it once the engine is idle.
+        check()
+        with self._gate:
+            check()
+            yield
+
+    def run_decode_step(self, tokens, pos, *, eager: bool = False,
+                        logits: bool = False):
+        """One decode step on host arrays ``tokens``/``pos`` [max_batch+1],
+        replayed from its graph or, with ``eager``, called eagerly, on an
+        idle engine (raises otherwise): (next tokens [max_batch+1] on the
+        host, a copy of the fp32 logits when ``logits`` else None). For
+        measuring or checking the step; the caller owns the cache rows it
+        writes."""
+        with self._idle():
+            return self._run("decode", {"tokens": tokens, "pos": pos},
+                             eager, logits)[:2]
+
+    def run_prefill(self, tokens, slots, lengths, *, eager: bool = False,
+                    logits: bool = False):
         """The prefill lane on host arrays (tokens [rows, max_prompt_len],
         slots [rows], lengths [rows]), as ``run_decode_step``."""
-        with self._run_lock:
-            self._in["p_tokens"].copy_(torch.from_numpy(tokens))
-            self._in["p_slots"].copy_(torch.from_numpy(slots))
-            self._in["p_lengths"].copy_(torch.from_numpy(lengths))
-            fn = self._bodies["prefill"] if eager else self._prefill_fn
-            return fn()
+        with self._idle():
+            return self._run("prefill", {"p_tokens": tokens,
+                                         "p_slots": slots,
+                                         "p_lengths": lengths},
+                             eager, logits)[:2]
 
     # -- scheduler loop ----------------------------------------------------
 
@@ -305,19 +342,21 @@ class LLMEngine:
             torch.cuda.set_device(self.device)
         while not self._stop:
             did = False
-            try:
-                did = self._admit_once() or did
-            except BaseException:
-                # _admit_once handles its own requeue; anything that still
-                # escapes must not kill the scheduler, but a crash-restart
-                # cycle must be visible on the scrape.
-                _metrics.count_loop_restart("llm.engine")
-            try:
-                did = self._step_once() or did
-            except BaseException:
-                # Step errors are already counted (3-strike fail-fast in
-                # _step_once); this tick records the loop's survival.
-                _metrics.count_loop_restart("llm.engine")
+            with self._gate:
+                try:
+                    did = self._admit_once() or did
+                except BaseException:
+                    # _admit_once handles its own requeue; anything that
+                    # still escapes must not kill the scheduler, but a
+                    # crash-restart cycle must be visible on the scrape.
+                    _metrics.count_loop_restart("llm.engine")
+                try:
+                    did = self._step_once() or did
+                except BaseException:
+                    # Step errors are already counted (3-strike fail-fast
+                    # in _step_once); this tick records the loop's
+                    # survival.
+                    _metrics.count_loop_restart("llm.engine")
             if time.monotonic() - self._last_reap > 5.0:
                 self._reap_streams()
             if not did:
@@ -402,9 +441,10 @@ class LLMEngine:
             toks[i, :len(prompt)] = prompt
             slot_idx[i] = slots[i]
             lengths[i] = len(prompt)
-        first, _ = self.run_prefill(toks, slot_idx, lengths)
         # The one sync per prefill: first tokens must reach the streams.
-        first = first.cpu().numpy()
+        first, _, _ = self._run("prefill", {"p_tokens": toks,
+                                            "p_slots": slot_idx,
+                                            "p_lengths": lengths})
         now = time.time()
         _obs.record_decode_tokens(self._dep, len(batch))
         with self._lock:
@@ -463,12 +503,11 @@ class LLMEngine:
             # raise-armed before_step must trip the 3-strike fail-fast,
             # not skip every step while the site stays armed.
             failpoints.hit("serve.llm.before_step")
-            nxt, _ = self.run_decode_step(self._tokens, self._pos)
-            # The host phase ends when the replay (or eager call) returns.
-            t_dispatch = time.perf_counter()
-            # The one sync per decode step: tokens fan out to the streams
-            # from host memory.
-            nxt = nxt.cpu().numpy()
+            # The host phase ends when the replay (or eager call)
+            # returns; then the one sync per decode step: tokens fan out
+            # to the streams from host memory.
+            nxt, _, t_dispatch = self._run(
+                "decode", {"tokens": self._tokens, "pos": self._pos})
         except BaseException:
             tracing.finish_span(step_span, "ERROR: step")
             self._step_errors_row += 1

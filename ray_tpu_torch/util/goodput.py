@@ -4,7 +4,7 @@ rank, set straight into this process's registry."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 from ray_tpu_torch.util import metrics as _metrics
 
@@ -15,24 +15,19 @@ ANATOMY_PHASES = ("data_wait", "host", "compute", "sync")
 _NODE = "local"
 
 
-def record_anatomy(trial: str, rank: int, phases: Dict[str, float],
-                   mfu: Optional[float] = None) -> None:
+def record_anatomy(trial: str, rank: int, phases: Dict[str, float]) -> None:
     """One step's anatomy for one rank of ``trial`` (per-rank gauges,
-    retracted by ``retract_trial``); ``mfu`` is the cost-model MFU
-    percent when a step cost is known."""
+    retracted by ``retract_trial``)."""
     tags = {"node_id": _NODE, "trial": str(trial), "rank": str(int(rank))}
     for phase, sec in phases.items():
         if phase in ANATOMY_PHASES:
             _metrics.TRAIN_STEP_ANATOMY_SECONDS.set(
                 max(0.0, float(sec)), tags={**tags, "phase": phase})
-    if mfu is not None:
-        _metrics.TRAIN_MFU_PERCENT.set(float(mfu), tags=tags)
 
 
 def retract_trial(trial: str) -> None:
     """Drop every per-rank series of ``trial`` (its session stopped)."""
-    for fam in (_metrics.TRAIN_MFU_PERCENT,
-                _metrics.TRAIN_STEP_ANATOMY_SECONDS):
-        for tags in fam.series():
-            if tags.get("trial") == str(trial):
-                fam.remove(tags=tags)
+    fam = _metrics.TRAIN_STEP_ANATOMY_SECONDS
+    for tags in fam.series():
+        if tags.get("trial") == str(trial):
+            fam.remove(tags=tags)

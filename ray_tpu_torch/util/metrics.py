@@ -191,11 +191,6 @@ SERVE_DECODE_ITL_SECONDS = Histogram(
                 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5],
     tag_keys=("node_id", "deployment"),
 )
-TRAIN_MFU_PERCENT = Gauge(
-    "ray_tpu_mfu_percent",
-    "Model-FLOPs utilization per rank of a step-anatomy entity",
-    tag_keys=("node_id", "trial", "rank"),
-)
 TRAIN_STEP_ANATOMY_SECONDS = Gauge(
     "ray_tpu_step_phase_seconds",
     "Most recent step-anatomy decomposition per rank: data_wait / host "

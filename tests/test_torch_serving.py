@@ -447,6 +447,42 @@ def test_cancel_frees_slot_and_queue():
         eng.shutdown_engine()
 
 
+def test_run_step_needs_an_idle_engine_and_returns_host_arrays():
+    """run_decode_step / run_prefill write K/V rows into every slot, so
+    they refuse while a request is active or queued, and hand back host
+    tokens and a copy of the logits, never the step's own buffers."""
+    eng = _engine(max_batch=1, prefill_rows=1, max_new_tokens=100,
+                  max_new_cap=200, step_throttle_s=0.01)
+    slots = eng.max_batch + 1
+    tokens, pos = np.ones(slots, np.int64), np.zeros(slots, np.int64)
+    p_args = (np.ones((1, eng.max_prompt_len), np.int64),
+              np.full(1, eng.max_batch, np.int64), np.ones(1, np.int64))
+    try:
+        active = eng.llm_submit(PROMPT, 100)
+        _wait_active(eng)
+        queued = eng.llm_submit(PROMPT, 100)
+        with pytest.raises(RuntimeError, match="engine is serving"):
+            eng.run_decode_step(tokens, pos)
+        with pytest.raises(RuntimeError, match="engine is serving"):
+            eng.run_prefill(*p_args)
+        assert eng.llm_cancel(active)
+        _wait_active(eng)  # the queued request takes the freed slot
+        with pytest.raises(RuntimeError, match="engine is serving"):
+            eng.run_decode_step(tokens, pos)
+        assert eng.llm_cancel(queued)
+        nxt, logits = eng.run_decode_step(tokens, pos, logits=True)
+        assert isinstance(nxt, np.ndarray) and nxt.shape == (slots,)
+        assert logits.shape == (slots, eng._cfg.vocab_size)
+        np.testing.assert_array_equal(nxt, logits.argmax(-1).numpy())
+        again, _ = eng.run_decode_step(tokens + 1, pos, logits=True)
+        np.testing.assert_array_equal(nxt, logits.argmax(-1).numpy())
+        first, none = eng.run_prefill(*p_args)
+        assert first.shape == (1,) and none is None
+        assert len(eng.generate(PROMPT, 3)) == 3  # serving resumes
+    finally:
+        eng.shutdown_engine()
+
+
 def test_ring_cache_wrap():
     """Generation past cache_len wraps the ring cursor (sliding-window
     attention) instead of erroring."""
@@ -586,6 +622,24 @@ def test_serve_vs_naive_agrees_on_cpu(family):
                          max_prompt_len=16, prefill_rows=2)
     assert res["match"], res
     assert all(len(p["engine"]) == 8 for p in res["prompts"])
+
+
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+def test_served_bf16_engine_tracks_its_fp32_copy_on_cpu(family):
+    """The engine at bf16 against its fp32 copy (same weights): logits
+    cosine > 0.999 after the prefill lane and after one decode step, and
+    the K/V cache within 3% (relative, Frobenius): bf16 rounding gives
+    0.4% here, a cache write 10% off gives 9.7%."""
+    from ray_tpu_torch.scripts.measure import serve_prompts, served_vs_fp32
+
+    _, tcfg = _configs(family, "bf16")
+    res = served_vs_fp32(family, tcfg,
+                         prompts=serve_prompts(4, tcfg.vocab_size, 16),
+                         device="cpu", max_batch=4, cache_len=32,
+                         max_prompt_len=16, prefill_rows=4)
+    assert res["n"] == 4
+    assert min(res["prefill_cosine"], res["decode_cosine"]) > 0.999, res
+    assert res["cache_rel_err"] < 0.03, res
 
 
 def test_phase_spans_and_step_anatomy():
