@@ -57,11 +57,26 @@ that fails:
    batch repeated) turns unstable at the seventh on every path, the
    fully plain one included: its seventh loss lands anywhere from 9.9 to
    11.8, above the first, depending on bf16 rounding alone;
-5. kernel path vs plain path, same weights and batch: GPT-2 (batch 4)
+5. the mesh of 1: a one-rank NCCL group (``parallel.distributed.
+   initialize``) and ``build_mesh(MeshConfig(fsdp=-1))``; the GPT-2 and
+   Llama main-path steps of phase 4 again, sharded over that mesh through
+   ``measure_gpt2`` / ``measure_llama(mesh=...)`` (DTensor parameters and
+   moments, gathered to plain tensors for the model), each with every
+   kernel counter set to 0 just before it and read just after: the losses
+   against phase 4's (same init and batch; the first within rtol 1e-5,
+   all six within 1e-4; the largest relative gap printed) and the same
+   launches of every kernel; ms/step, tok/s and peak memory beside phase
+   4's; then ``save_sharded`` of the GPT-2 state after one step and
+   ``load_sharded`` onto the same mesh, every leaf bit for bit (bytes and
+   seconds printed); then, where there are two CUDA devices, 2 NCCL ranks
+   of GPT-2 small at fsdp=2 (this script with ``--mesh-rank``): the first
+   loss within rtol 1e-4 of the mesh of 1 and the rest within 1e-2 --
+   with one device a line says the 2-rank run did not run;
+6. kernel path vs plain path, same weights and batch: GPT-2 (batch 4)
    flash + fused norms, and dense + fused norms, each against fully plain
    (dense attention, ``fused_norm=False``); Llama (batch 2) flash + RMSNorm
    kernels, and dense + RMSNorm kernels, each against fully plain;
-6. serving: two ``LLMEngine``s at full width through ``measure_serve``
+7. serving: two ``LLMEngine``s at full width through ``measure_serve``
    (every kernel counter set to 0 just before each and read just after:
    the serving path reaches no kernel, as in the reference), each serving
    64 requests (prompts of 16-128 / 16-256 random tokens from seed 3, 64
@@ -85,8 +100,9 @@ that fails:
    printed). The engines' numbers (decode tok/s at full occupancy, step
    ms graph and eager, prefill ms, TTFT p50/p99, peak memory) are
    printed beside the card's name and power limit;
-7. one JSON line of every TPU kernel of the JAX package, all ported;
-8. the last line, ``{"ok": true, "device": {...}}``.
+8. one JSON line of every TPU kernel of the JAX package, all ported, with
+   its launches on its main path and over the mesh of 1;
+9. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerances: fused-norm (LayerNorm, RMSNorm, GELU) fp32 outputs within
 1e-5 (forward) and 1e-4 (gradients) of the plain version, relative to the
@@ -550,12 +566,11 @@ def run_step(torch, counters, label, measure, cfg, batch, warmup, steps,
     """One measured train-step run with every kernel counter set to 0 just
     before it; returns the step dict with launches and launches per step,
     after checking the loss and the per-step launch counts."""
-    torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.clear()
     step = measure(cfg, batch, steps=steps, warmup=warmup, device="cuda")
     launches = {k: sum(c[k] for c in counters) for k in PORTED}
-    step["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    step["max_memory_allocated"] = step["peak_memory_bytes"]
     step["launches"] = launches
     n_steps = step["warmup"] + steps
     step["launches_per_step"] = {k: launches[k] / n_steps for k in PORTED}
@@ -609,7 +624,7 @@ def compare_paths(torch, loss_fn, params, tokens, paths):
 
 
 def serve_phase(torch, counters, smi):
-    """Phase 6: both serving engines at full width, each with the kernel
+    """Phase 7: both serving engines at full width, each with the kernel
     counters zeroed just before it and read just after, then the fp32
     copies against the naive loop. Returns the report entries."""
     import gc
@@ -694,6 +709,194 @@ def serve_phase(torch, counters, smi):
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def _bits_equal(torch, a, b) -> bool:
+    """Same dtype, shape and bits (a DTensor by its local shard); a Python
+    value (the step) by equality."""
+    if not isinstance(a, torch.Tensor):
+        return a == b
+    if hasattr(a, "to_local"):
+        if a.placements != b.placements:
+            return False
+        a, b = a.to_local(), b.to_local()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def checkpoint_round_trip(torch, mesh, cfg, smi):
+    """The sharded GPT-2 state after one step, through ``save_sharded``
+    into ``chip_smoke_out/ckpt`` and ``load_sharded`` back onto the same
+    mesh: every leaf bit for bit. Returns bytes and seconds."""
+    from ray_tpu_torch._tree import tree_leaves
+    from ray_tpu_torch.models.gpt2 import gpt2_init, gpt2_loss, gpt2_shardings
+    from ray_tpu_torch.train.checkpoint import load_sharded, save_sharded
+    from ray_tpu_torch.train.train_step import (make_init_fn, make_train_step,
+                                                state_shardings)
+
+    sh = gpt2_shardings(cfg, mesh)
+    gen = torch.Generator(device="cuda")
+    state = make_init_fn(lambda g: gpt2_init(g, cfg, device="cuda"), sh,
+                         mesh)(gen.manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, cfg.seq_len + 1),
+                           device="cuda", generator=gen.manual_seed(1))
+    state, _ = make_train_step(lambda p, b: gpt2_loss(p, b, cfg), sh, mesh)(
+        state, {"tokens": tokens})
+    torch.cuda.synchronize()
+    path = OUT / "ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        save_sharded(state, str(path))
+        save_s = time.perf_counter() - t0
+        nbytes = sum(p.stat().st_size for p in path.iterdir())
+        t0 = time.perf_counter()
+        loaded = load_sharded(str(path), state_shardings(sh))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    pairs = list(zip(tree_leaves(state), tree_leaves(loaded)))
+    same = sum(_bits_equal(torch, a, b) for a, b in pairs)
+    print(f"mesh of 1: checkpoint of the GPT-2 state after one step "
+          f"[{smi}]: {len(pairs)} leaves, {nbytes / 1e9:.3f} GB, save "
+          f"{save_s:.2f} s, load {load_s:.2f} s, {same} of {len(pairs)} "
+          f"leaves bit for bit")
+    require(same == len(pairs) and loaded["step"] == state["step"],
+            f"checkpoint round trip: {same} of {len(pairs)} leaves equal, "
+            f"step {loaded['step']} vs {state['step']}")
+    return {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+            "leaves": len(pairs), "bit_equal": same}
+
+
+def mesh_phase(torch, counters, unsharded, smi):
+    """Phase 5: a one-rank NCCL group and ``build_mesh(MeshConfig(fsdp=-1))``;
+    the GPT-2 and Llama main-path steps through ``measure_*(mesh=...)``,
+    each with every kernel counter set to 0 just before it and read just
+    after, held to the unsharded runs of phase 4 (``unsharded``: same init
+    and batch); then the checkpoint round trip; then 2 NCCL ranks of GPT-2
+    at fsdp=2 where there are two cards. Returns the report entries."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel import distributed
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from ray_tpu_torch.scripts.measure import (FUSED_FLAGS, LLAMA_FLAGS,
+                                               measure_gpt2, measure_llama)
+
+    out = {}
+    t0 = time.perf_counter()
+    distributed.initialize("chip-smoke", 0, 1)
+    try:
+        mesh = build_mesh(MeshConfig(fsdp=-1))
+        out["setup_s"] = time.perf_counter() - t0
+        print(f"mesh of 1: {mesh} over a one-rank nccl group, up in "
+              f"{out['setup_s']:.2f} s")
+        for key, label, measure, cfg, batch in (
+                ("gpt2", "GPT-2", measure_gpt2, GPT2Config(**FUSED_FLAGS),
+                 BATCH),
+                ("llama", "Llama", measure_llama, LlamaConfig(**LLAMA_FLAGS),
+                 L_BATCH)):
+            ref = unsharded[key]
+            for c in counters:
+                c.clear()
+            r = measure(cfg, batch, steps=STEPS, warmup=WARMUP,
+                        device="cuda", mesh=mesh)
+            r["launches"] = {k: sum(c[k] for c in counters) for k in PORTED}
+            gaps = [abs(a - b) / abs(b)
+                    for a, b in zip(r["losses"], ref["losses"])]
+            r["loss_rel_gaps"] = gaps
+            print(f"mesh of 1, {label} {cfg.n_params / 1e6:.0f}M batch "
+                  f"{batch} seq {cfg.seq_len} [{smi}]: {r['ms_step']:.2f} "
+                  f"ms/step, {r['tok_s']:.1f} tok/s, MFU {r['mfu']:.2f}%, "
+                  f"peak memory {r['peak_memory_bytes'] / 2**30:.3f} GiB; "
+                  f"unsharded {ref['ms_step']:.2f} ms/step, "
+                  f"{ref['tok_s']:.1f} tok/s, peak memory "
+                  f"{ref['peak_memory_bytes'] / 2**30:.3f} GiB; losses "
+                  f"{[round(x, 4) for x in r['losses']]}, largest relative "
+                  f"gap to unsharded {max(gaps):.3e}; launches "
+                  f"{r['launches']}")
+            require(gaps[0] <= 1e-5, f"mesh {key}: first loss off by "
+                    f"{gaps[0]:.3e} (rtol 1e-5)")
+            require(max(gaps) <= 1e-4, f"mesh {key}: losses off by "
+                    f"{max(gaps):.3e} (rtol 1e-4)")
+            require(r["launches"] == ref["launches"],
+                    f"mesh {key}: launches {r['launches']} vs unsharded "
+                    f"{ref['launches']}")
+            require(all(r["launches"][k] > 0 for k in PORTED
+                        if ref["launches"][k]),
+                    f"mesh {key}: a kernel of the path did not launch")
+            out[key] = r
+        out["checkpoint"] = checkpoint_round_trip(
+            torch, mesh, GPT2Config(**FUSED_FLAGS), smi)
+    finally:
+        distributed.shutdown()
+    out["two_ranks"] = two_rank_phase(torch, out["gpt2"], smi)
+    return out
+
+
+def two_rank_phase(torch, one_rank, smi):
+    """GPT-2 small at fsdp=2 on 2 NCCL ranks (this script with
+    ``--mesh-rank``), where there are two cards: the first loss within
+    rtol 1e-4 of the mesh of 1, the later ones within the bf16 rule (rtol
+    1e-2). Otherwise one line saying why it did not run."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"mesh of 2: not run: {n} CUDA device (needs 2)")
+        return {"ran": False, "devices": n}
+    from ray_tpu_torch.parallel.distributed import free_port
+
+    result = OUT / "mesh2.json"
+    result.unlink(missing_ok=True)
+    address = f"127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen([sys.executable, __file__, "--mesh-rank",
+                               str(r), "2", address, str(result)])
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(rcs == [0, 0], f"mesh of 2: ranks exited {rcs}")
+    r = json.loads(result.read_text())
+    gaps = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                one_rank["losses"])]
+    print(f"mesh of 2 (fsdp=2), GPT-2 small batch {BATCH} [{smi}]: "
+          f"{r['ms_step']:.2f} ms/step, {r['tok_s']:.1f} tok/s, MFU "
+          f"{r['mfu']:.2f}%, rank 0 peak memory "
+          f"{r['peak_memory_bytes'] / 2**30:.3f} GiB; losses "
+          f"{[round(x, 4) for x in r['losses']]}, relative gaps to the mesh "
+          f"of 1 {[f'{g:.2e}' for g in gaps]}")
+    require(gaps[0] <= 1e-4, f"mesh of 2: first loss off by {gaps[0]:.3e}")
+    require(max(gaps) <= 1e-2, f"mesh of 2: losses off by {max(gaps):.3e}")
+    return {"ran": True, **r, "loss_rel_gaps": gaps}
+
+
+def mesh_rank_main(rank: int, world: int, address: str, result: str) -> int:
+    """One NCCL rank of ``two_rank_phase``; rank 0 writes the result."""
+    import torch
+
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.parallel import distributed
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from ray_tpu_torch.scripts.measure import FUSED_FLAGS, measure_gpt2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize("chip-smoke-2", rank, world,
+                           coordinator_address=address)
+    try:
+        mesh = build_mesh(MeshConfig(fsdp=world))
+        r = measure_gpt2(GPT2Config(**FUSED_FLAGS), BATCH, steps=STEPS,
+                         warmup=WARMUP, mesh=mesh)
+    finally:
+        distributed.shutdown()
+    if rank == 0:
+        Path(result).write_text(json.dumps(r))
+    return 0
 
 
 # -- main ----------------------------------------------------------------------
@@ -848,7 +1051,12 @@ def main() -> int:
                      WARMUP, STEPS, EXPECTED_LLAMA)
     report["train_step_llama"] = lstep
 
-    # Phase 5: kernel paths vs the plain path, same weights and batch.
+    # Phase 5: the same steps over a mesh of 1 (this slice's main path),
+    # the sharded checkpoint, and 2 ranks where there are two cards.
+    mesh = mesh_phase(torch, counters, {"gpt2": step, "llama": lstep}, smi)
+    report["mesh"] = mesh
+
+    # Phase 6: kernel paths vs the plain path, same weights and batch.
     gen = torch.Generator(device="cuda")
     params = gpt2_init(gen.manual_seed(0), cfg, device="cuda")
     tokens = torch.randint(0, cfg.vocab_size, (4, cfg.seq_len + 1),
@@ -870,12 +1078,13 @@ def main() -> int:
                                       use_flash=False)}))
     del params
 
-    # Phase 6: the serving engines.
+    # Phase 7: the serving engines.
     report["serving"] = serve_phase(torch, counters, smi)
 
-    # Phase 7: the kernels line. Each kernel's launches are those of the
+    # Phase 8: the kernels line. Each kernel's launches are those of the
     # main path it belongs to (the flash kernels: GPT-2's, with Llama's
-    # beside them).
+    # beside them), and ``launches_mesh`` those of the same path over the
+    # mesh of 1.
     kernels = []
     for kname, where, body in TPU_KERNELS:
         bf = results["bfloat16"][kname]
@@ -891,6 +1100,8 @@ def main() -> int:
             "status": "ported+checked", "body": body,
             "main_path": "llama" if kname in RMS_KERNELS else "gpt2",
             "launches_per_step": main["launches_per_step"][kname],
+            "launches_mesh": mesh["llama" if kname in RMS_KERNELS
+                                  else "gpt2"]["launches"][kname],
             "dtype": "bfloat16",
         }
         if "library_dres_ms" in bf:
@@ -900,6 +1111,7 @@ def main() -> int:
             entry["host_us"] = bf["host_us"]
             entry["llama"] = {
                 "launches": lstep["launches"][kname],
+                "launches_mesh": mesh["llama"]["launches"][kname],
                 "launches_per_step": lstep["launches_per_step"][kname],
                 **{k: report["flash_llama_shape"][kname][k] for k in
                    ("max_abs_err", "ms", "host_us", "plain_ms", "library_ms",
@@ -914,11 +1126,14 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps(report["kernels_line"]))
 
-    # Phase 8.
+    # Phase 9.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4], sys.argv[5]))
     sys.exit(main())

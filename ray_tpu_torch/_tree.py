@@ -2,11 +2,12 @@
 
 Leaves are visited in sorted-key order, the order ``jax.tree.leaves``
 uses for dicts, so sums over leaves add in the same order as in the JAX
-package.
+package. A leaf may be a DTensor (the sharded train state).
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Any, Callable
 
 
@@ -23,3 +24,11 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
     return fn(tree, *rest)
+
+
+def is_dtensor(leaf) -> bool:
+    """Whether ``leaf`` is a DTensor. One exists only once its module is
+    loaded, so a one-device step does not pay the second that loading
+    ``torch.distributed.tensor`` takes."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(leaf, mod.DTensor)

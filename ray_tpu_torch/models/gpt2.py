@@ -12,7 +12,9 @@ What differs from the JAX module, and why:
 * ``scan_layers`` is accepted and ignored: the layers run as a Python loop
   over per-layer views of the stacked leaves (PyTorch runs eagerly; there
   is no trace to shorten).
-* ``with_logical_constraint`` is dropped: this slice runs on one device.
+* ``with_logical_constraint`` is dropped: the model runs on plain local
+  tensors; the sharded train step gathers the parameters before it
+  (``train/train_step.py``), laid out by ``gpt2_shardings``.
 * ``remat`` maps onto ``torch.utils.checkpoint`` per block
   (``models/_remat.py``): ``True`` saves nothing inside the block,
   ``"dots"`` saves only ``aten.mm``/``aten.addmm`` outputs (the four
@@ -38,6 +40,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch._tree import tree_map
 from ray_tpu_torch.models._remat import (
     check_attention_impl,
     remat_block,
@@ -106,6 +109,39 @@ class GPT2Config:
     def tiny(cls) -> "GPT2Config":
         """CPU-test sized."""
         return cls(vocab_size=256, n_layer=2, n_head=4, d_model=64, seq_len=64)
+
+
+def gpt2_param_axes(cfg: GPT2Config) -> Params:
+    """Logical axis names for every param leaf (same tree structure)."""
+    return {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "blocks": {
+            # leading dim is the stacked layer dim
+            "ln1_scale": ("layers", None),
+            "ln1_bias": ("layers", None),
+            "attn_qkv_w": ("layers", "embed", "qkv"),
+            "attn_qkv_b": ("layers", "qkv"),
+            "attn_out_w": ("layers", "qkv", "embed"),
+            "attn_out_b": ("layers", None),
+            "ln2_scale": ("layers", None),
+            "ln2_bias": ("layers", None),
+            "mlp_in_w": ("layers", "embed", "mlp"),
+            "mlp_in_b": ("layers", "mlp"),
+            "mlp_out_w": ("layers", "mlp", "embed"),
+            "mlp_out_b": ("layers", None),
+        },
+        "lnf_scale": (None,),
+        "lnf_bias": (None,),
+    }
+
+
+def gpt2_shardings(cfg: GPT2Config, mesh, rules=None) -> Params:
+    """A ``parallel.sharding.NamedSharding`` for every param leaf."""
+    from ray_tpu_torch.parallel.sharding import logical_sharding
+
+    return tree_map(lambda axes: logical_sharding(mesh, axes, rules),
+                    gpt2_param_axes(cfg))
 
 
 def gpt2_init(generator: torch.Generator, cfg: GPT2Config, *,

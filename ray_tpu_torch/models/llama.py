@@ -10,9 +10,11 @@ is. Compute is in ``cfg.dtype`` (bf16), parameters and the loss in fp32.
 What differs from the JAX module, and why (as in ``models/gpt2.py``):
 
 * ``scan_layers`` is accepted and ignored: the layers run as a Python loop.
-* ``with_logical_constraint`` and the ``mesh`` field are dropped: this
-  slice runs on one device; ``attention_impl`` other than ``"auto"``
-  (ring, Ulysses) raises.
+* ``with_logical_constraint`` and the ``mesh`` field are dropped: the
+  model runs on plain local tensors; the sharded train step gathers the
+  parameters before it (``train/train_step.py``), laid out by
+  ``llama_shardings``. ``attention_impl`` other than ``"auto"`` (ring,
+  Ulysses) raises.
 * ``remat`` maps onto ``torch.utils.checkpoint`` per block
   (``models/_remat.py``); under ``"dots"`` the seven projections are saved
   and the norms, RoPE, attention and SwiGLU are recomputed.
@@ -38,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch._tree import tree_map
 from ray_tpu_torch.models._remat import (
     check_attention_impl,
     remat_block,
@@ -117,6 +120,34 @@ class LlamaConfig:
         """~246M parameters, for single-device measurement."""
         return cls(n_layer=16, n_head=16, n_kv_head=4, d_model=1024,
                    seq_len=2048)
+
+
+def llama_param_axes(cfg: LlamaConfig) -> Params:
+    """Logical axis names for every param leaf (same tree structure)."""
+    return {
+        "embed": ("vocab", "embed"),
+        "blocks": {
+            "attn_norm": ("layers", None),
+            "wq": ("layers", "embed", "qkv"),
+            "wk": ("layers", "embed", "qkv"),
+            "wv": ("layers", "embed", "qkv"),
+            "wo": ("layers", "qkv", "embed"),
+            "mlp_norm": ("layers", None),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+def llama_shardings(cfg: LlamaConfig, mesh, rules=None) -> Params:
+    """A ``parallel.sharding.NamedSharding`` for every param leaf."""
+    from ray_tpu_torch.parallel.sharding import logical_sharding
+
+    return tree_map(lambda axes: logical_sharding(mesh, axes, rules),
+                    llama_param_axes(cfg))
 
 
 def llama_init(generator: torch.Generator, cfg: LlamaConfig, *,

@@ -13,10 +13,10 @@ Nothing is built when this module is imported: ``load_library`` builds at
 first use, and ``build`` lets a caller start several builds at once.
 
 The calling convention the kernel wrappers share lives here too: a CPU
-tensor takes the plain version (``on_cpu``), a launcher gets PyTorch's
-current stream (``stream``), and ``launch`` raises on a non-zero
-``cudaError_t`` (``raise_on_error``) and counts only launches that were
-accepted.
+tensor takes the plain version and a tensor subclass (a DTensor) raises
+(``on_cpu``), a launcher gets PyTorch's current stream (``stream``), and
+``launch`` raises on a non-zero ``cudaError_t`` (``raise_on_error``) and
+counts only launches that were accepted.
 """
 
 from __future__ import annotations
@@ -107,7 +107,14 @@ def load_library(name: str) -> ctypes.CDLL:
 
 def on_cpu(x) -> bool:
     """True for a CPU tensor, False for a CUDA one; raises for any other
-    device rather than guess which path it should take."""
+    device rather than guess which path it should take, and for a tensor
+    subclass (a DTensor, for one): the kernels and their plain versions
+    take plain local tensors."""
+    import torch
+
+    if type(x) is not torch.Tensor and type(x) is not torch.nn.Parameter:
+        raise TypeError(f"the kernel wrappers take plain tensors, got "
+                        f"{type(x).__name__}")
     if x.device.type == "cpu":
         return True
     if x.device.type != "cuda":

@@ -75,24 +75,32 @@ def _sync(device: torch.device) -> None:
 
 def _measure(init_params, loss_fn, vocab_size: int, seq_len: int,
              flops_per_token: float, batch: int, steps: int, warmup: int,
-             device: torch.device) -> dict:
+             device: torch.device, mesh=None, shardings=None) -> dict:
     """The timed-step protocol behind ``measure_gpt2`` and ``measure_llama``.
 
     Initialises the state from seed 0 (``init_params(generator)``) and a
     fixed batch from seed 1, runs ``warmup`` steps, syncs the device
     (``.item()`` of the loss, then ``torch.cuda.synchronize``), then times
-    ``steps`` steps and syncs again.
+    ``steps`` steps and syncs again. With ``mesh`` the state is sharded by
+    ``shardings`` and every rank steps on the same global batch.
 
     Returns {tok_s, mfu, ms_step, loss, losses, dt, steps, warmup, batch,
-    device}; ``losses`` holds every step's loss, warmup included, and
-    ``mfu`` is taken against the device's dense bf16 peak.
+    device, mesh, peak_memory_bytes}; ``losses`` holds every step's loss,
+    warmup included, ``mfu`` is taken against the device's dense bf16 peak
+    times the mesh's size, ``tok_s`` counts the global batch, and
+    ``peak_memory_bytes`` is this rank's ``torch.cuda.max_memory_allocated``
+    from before the init (None on the CPU).
     """
     from ray_tpu_torch.train.train_step import make_init_fn, make_train_step
 
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh for a step on {device}")
     warmup = max(warmup, 1)  # >=1: the post-warmup sync reads metrics
-    state = make_init_fn(init_params)(
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    state = make_init_fn(init_params, shardings, mesh)(
         torch.Generator(device=device).manual_seed(0))
-    step_fn = make_train_step(loss_fn)
+    step_fn = make_train_step(loss_fn, shardings, mesh)
     tokens = torch.randint(
         0, vocab_size, (batch, seq_len + 1), device=device,
         generator=torch.Generator(device=device).manual_seed(1))
@@ -112,7 +120,8 @@ def _measure(init_params, loss_fn, vocab_size: int, seq_len: int,
     dt = time.perf_counter() - t0
     tok_s = batch * seq_len * steps / dt
     name = device_name(device)
-    mfu = tok_s * flops_per_token / peak_flops_per_chip(name) * 100
+    n_dev = mesh.size() if mesh is not None else 1
+    mfu = tok_s * flops_per_token / (peak_flops_per_chip(name) * n_dev) * 100
     return {
         "tok_s": tok_s,
         "mfu": mfu,
@@ -124,40 +133,50 @@ def _measure(init_params, loss_fn, vocab_size: int, seq_len: int,
         "warmup": warmup,
         "batch": batch,
         "device": name,
+        "mesh": (dict(zip(mesh.mesh_dim_names, mesh.shape))
+                 if mesh is not None else None),
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                              if device.type == "cuda" else None),
     }
 
 
 def measure_gpt2(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
-                 device=None) -> dict:  # step-timed
-    """Timed GPT-2 train-step loop -> measurement dict (see ``_measure``)."""
+                 device=None, mesh=None) -> dict:  # step-timed
+    """Timed GPT-2 train-step loop -> measurement dict (see ``_measure``);
+    with ``mesh`` the step is sharded by ``gpt2_shardings``."""
     from ray_tpu_torch.models.gpt2 import (
         gpt2_flops_per_token,
         gpt2_init,
         gpt2_loss,
+        gpt2_shardings,
     )
 
     device = resolve_device(device)
     return _measure(lambda g: gpt2_init(g, cfg, device=device),
                     lambda p, b: gpt2_loss(p, b, cfg), cfg.vocab_size,
                     cfg.seq_len, gpt2_flops_per_token(cfg), batch, steps,
-                    warmup, device)
+                    warmup, device, mesh,
+                    gpt2_shardings(cfg, mesh) if mesh is not None else None)
 
 
 def measure_llama(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
-                  device=None) -> dict:  # step-timed
+                  device=None, mesh=None) -> dict:  # step-timed
     """Timed Llama train-step loop -> measurement dict (see ``_measure``);
-    MFU from ``llama_flops_per_token``."""
+    MFU from ``llama_flops_per_token``; with ``mesh`` the step is sharded
+    by ``llama_shardings``."""
     from ray_tpu_torch.models.llama import (
         llama_flops_per_token,
         llama_init,
         llama_loss,
+        llama_shardings,
     )
 
     device = resolve_device(device)
     return _measure(lambda g: llama_init(g, cfg, device=device),
                     lambda p, b: llama_loss(p, b, cfg), cfg.vocab_size,
                     cfg.seq_len, llama_flops_per_token(cfg), batch, steps,
-                    warmup, device)
+                    warmup, device, mesh,
+                    llama_shardings(cfg, mesh) if mesh is not None else None)
 
 
 # The serving engines' settings at full width, by family: 32 slots, a ring

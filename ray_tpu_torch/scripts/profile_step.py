@@ -10,7 +10,7 @@ kernels by device time, and the top PyTorch operators by the device time of
 the kernels they launched themselves.
 
     python -m ray_tpu_torch.scripts.profile_step [--config flash|dense|llama]
-        [--batch N] [--steps 2] [--out profile_step.json]
+        [--batch N] [--steps 2] [--mesh] [--out profile_step.json]
 
 ``flash`` (the default) is GPT-2 small with ``measure.FUSED_FLAGS``,
 ``dense`` the same with ``measure.FUSED_DENSE_FLAGS`` (both batch 8 unless
@@ -19,7 +19,16 @@ the kernels they launched themselves.
 ``serve-llama`` profile ``--steps`` replays of an ``LLMEngine``'s captured
 decode step (``measure.SERVE_ENGINES`` settings, 32 slots, random tokens
 and positions), each replay followed by the step's device sync, with no
-request in flight. Needs a CUDA device.
+request in flight. ``--mesh`` profiles the train step sharded over a mesh
+of 1 (a one-rank NCCL group, ``build_mesh(MeshConfig(fsdp=-1))``, the
+model's shardings), as ``chip_smoke.py`` phase 5 runs it, and times it
+against the unsharded step in the same process: ``MESH_PAIRS`` pairs of
+single synced steps in turns (``paired_ms``), and the same pairs of a
+step whose loss is only the sum of every parameter (``machinery_ms``:
+what the mesh adds around the model -- the gather, its backward and
+AdamW on local shards -- with almost no model work). Beside the device
+time, the top operators by host (self CPU) time a step say where the
+host's time goes. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -56,32 +65,50 @@ def classify(name: str) -> str:
 
 
 DEFAULT_BATCH = {"flash": 8, "dense": 8, "llama": 4}
+MESH_PAIRS = 10
 SERVE_CONFIGS = ("serve-gpt2", "serve-llama")
 
 
 def _model(config: str):
-    """(cfg, init(generator, cfg, device=...), loss(params, batch, cfg))."""
+    """(cfg, init(generator, cfg, device=...), loss(params, batch, cfg),
+    shardings(cfg, mesh))."""
     from ray_tpu_torch.models import gpt2, llama
     from ray_tpu_torch.scripts.measure import (FUSED_DENSE_FLAGS,
                                                FUSED_FLAGS, LLAMA_FLAGS)
 
     if config == "llama":
         return (llama.LlamaConfig(**LLAMA_FLAGS), llama.llama_init,
-                llama.llama_loss)
+                llama.llama_loss, llama.llama_shardings)
     flags = {"flash": FUSED_FLAGS, "dense": FUSED_DENSE_FLAGS}[config]
-    return gpt2.GPT2Config(**flags), gpt2.gpt2_init, gpt2.gpt2_loss
+    return (gpt2.GPT2Config(**flags), gpt2.gpt2_init, gpt2.gpt2_loss,
+            gpt2.gpt2_shardings)
 
 
 def profile_step(batch: int | None = None, steps: int = 2, warmup: int = 2,
-                 config: str = "flash") -> dict:
+                 config: str = "flash", mesh: bool = False) -> dict:
+    if not mesh:
+        return _profile_train(batch, steps, warmup, config, None)
+    from ray_tpu_torch.parallel import distributed
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    distributed.initialize("profile-step", 0, 1)
+    try:
+        return _profile_train(batch, steps, warmup, config,
+                              build_mesh(MeshConfig(fsdp=-1)))
+    finally:
+        distributed.shutdown()
+
+
+def _profile_train(batch, steps, warmup, config, mesh) -> dict:
     from ray_tpu_torch.train.train_step import make_init_fn, make_train_step
 
     device = torch.device("cuda")
     batch = batch or DEFAULT_BATCH[config]
-    cfg, init, loss = _model(config)
-    state = make_init_fn(lambda g: init(g, cfg, device=device))(
+    cfg, init, loss, shardings = _model(config)
+    sh = shardings(cfg, mesh) if mesh is not None else None
+    state = make_init_fn(lambda g: init(g, cfg, device=device), sh, mesh)(
         torch.Generator(device=device).manual_seed(0))
-    step_fn = make_train_step(lambda p, b: loss(p, b, cfg))
+    step_fn = make_train_step(lambda p, b: loss(p, b, cfg), sh, mesh)
     tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.seq_len + 1),
                            device=device,
                            generator=torch.Generator(device=device).manual_seed(1))
@@ -93,8 +120,57 @@ def profile_step(batch: int | None = None, steps: int = 2, warmup: int = 2,
         state, _ = step_fn(state, {"tokens": tokens})
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    return _profile(lambda: step_fn(state, {"tokens": tokens}), steps,
-                    plain_wall, {"config": config, "batch": batch})
+    out = _profile(lambda: step_fn(state, {"tokens": tokens}), steps,
+                   plain_wall, {"config": config, "batch": batch,
+                                "mesh": mesh is not None})
+    if mesh is not None:
+        out.update(_against_unsharded(lambda g: init(g, cfg, device=device),
+                                      lambda p, b: loss(p, b, cfg), sh, mesh,
+                                      {"tokens": tokens}))
+    return out
+
+
+def _against_unsharded(init, loss, sh, mesh, batch) -> dict:
+    """Pairs of single synced steps, unsharded and over ``mesh`` in turns
+    (the first of a pair alternating), of the model's step and of a step
+    whose loss is the sum of the parameters; host ms of each, and their
+    medians."""
+    import statistics
+
+    from ray_tpu_torch._tree import tree_leaves
+    from ray_tpu_torch.train.train_step import make_init_fn, make_train_step
+
+    def param_sum(params, _):
+        return sum(p.sum() for p in tree_leaves(params))
+
+    def sync():
+        if mesh.device_type == "cuda":
+            torch.cuda.synchronize()
+
+    out = {}
+    for name, fn in (("paired_ms", loss), ("machinery_ms", param_sum)):
+        runs = {}
+        for key, s, m in (("unsharded", None, None), ("mesh", sh, mesh)):
+            state = make_init_fn(init, s, m)(torch.Generator(
+                device=mesh.device_type).manual_seed(0))
+            step = make_train_step(fn, s, m)
+            runs[key] = (step, state)
+            step(state, batch)  # warm up
+        times = {"unsharded": [], "mesh": []}
+        for i in range(MESH_PAIRS):
+            for key in (("unsharded", "mesh") if i % 2 == 0
+                        else ("mesh", "unsharded")):
+                step, state = runs[key]
+                sync()
+                t0 = time.perf_counter()
+                step(state, batch)
+                sync()
+                times[key].append((time.perf_counter() - t0) * 1e3)
+        out[name] = times
+        out[name.replace("_ms", "_median_ms")] = {
+            k: statistics.median(v) for k, v in times.items()}
+        del runs
+    return out
 
 
 def profile_decode(model: str, steps: int = 20, warmup: int = 3) -> dict:
@@ -154,6 +230,9 @@ def _profile(step, steps: int, plain_wall: float, head: dict) -> dict:
                   if e.device_type == torch.autograd.DeviceType.CPU
                   and e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:15]
+    host_ops = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)[:15]
     return {
         "device": torch.cuda.get_device_name(),
         **head,
@@ -172,6 +251,11 @@ def _profile(step, steps: int, plain_wall: float, head: dict) -> dict:
         # (operator, device ms per step, calls per step)
         "top_ops_ms_per_step": [(e.key, e.self_device_time_total / 1e3 / steps,
                                  e.count / steps) for e in ops],
+        # (operator, host self ms per step under the profiler, calls per
+        # step)
+        "top_host_ops_ms_per_step": [(e.key, e.self_cpu_time_total / 1e3
+                                      / steps, e.count / steps)
+                                     for e in host_ops],
     }
 
 
@@ -181,6 +265,8 @@ def main() -> None:
                     default="flash")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--mesh", action="store_true",
+                    help="the train step sharded over a mesh of 1")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -188,7 +274,8 @@ def main() -> None:
     if args.config in SERVE_CONFIGS:
         result = profile_decode(args.config.split("-")[1], args.steps)
     else:
-        result = profile_step(args.batch, args.steps, config=args.config)
+        result = profile_step(args.batch, args.steps, config=args.config,
+                              mesh=args.mesh)
     text = json.dumps(result, indent=1)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -5,6 +5,12 @@ The arithmetic is that of ``adamw_update`` there, step for step: fp32
 moments, the global norm in fp32, the clip scale ``clip / max(gnorm, 1e-12)``
 applied only when ``gnorm > clip`` (``clip_grad_norm_`` would add 1e-6),
 weight decay on every leaf, bias corrections and the warmup factor in fp32.
+
+The leaves may be DTensors (the sharded train step's): then the
+elementwise update runs on each rank's local shards, and the global norm
+is one all-reduce of the ranks' sums of squares, each unique shard
+counted once -- by the rank at coordinate 0 of every mesh axis the leaf
+is replicated over.
 """
 
 from __future__ import annotations
@@ -13,8 +19,9 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ray_tpu_torch._tree import tree_leaves, tree_map
+from ray_tpu_torch._tree import is_dtensor, tree_leaves, tree_map
 
 Params = Any
 
@@ -43,6 +50,38 @@ def _schedule(cfg: AdamWConfig, step: int) -> float:
     return float(np.float32(lr))
 
 
+def _local(t):
+    """A DTensor's local shard (a view of its storage), or ``t``."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _owned(g) -> bool:
+    """Whether this rank counts ``g``'s local shard in the global norm: a
+    plain tensor, or a DTensor at coordinate 0 of each replicated axis."""
+    if not is_dtensor(g):
+        return True
+    coord = g.device_mesh.get_coordinate()
+    return all(c == 0 for c, p in zip(coord, g.placements)
+               if p.is_replicate())
+
+
+def _global_norm(grads: Params) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32 -- over the whole
+    tensors when the leaves are DTensors (one all-reduce of the ranks'
+    sums over the default group, which the leaves' mesh must span)."""
+    leaves = tree_leaves(grads)
+    sq = sum(_local(g).float().square().sum() for g in leaves if _owned(g))
+    sharded = [g for g in leaves if is_dtensor(g)]
+    if sharded and sharded[0].device_mesh.size() > 1:
+        if sharded[0].device_mesh.size() != dist.get_world_size():
+            raise ValueError("the leaves' mesh must span every rank of the "
+                             "default process group")
+        sq = torch.as_tensor(sq, dtype=torch.float32,
+                             device=_local(sharded[0]).device)
+        dist.all_reduce(sq)
+    return torch.sqrt(sq)
+
+
 def adamw_update(cfg: AdamWConfig, grads: Params, params: Params,
                  opt_state: dict[str, Params], step: int):
     """One AdamW step. Returns (params, opt_state, lr, gnorm): ``lr`` a
@@ -52,8 +91,7 @@ def adamw_update(cfg: AdamWConfig, grads: Params, params: Params,
     and returns the same trees (the JAX version donates the old state to
     XLA instead; either way the caller must not reuse the old state)."""
     with torch.no_grad():
-        gnorm = torch.sqrt(sum(g.float().square().sum()
-                               for g in tree_leaves(grads)))
+        gnorm = _global_norm(grads)
         scale = torch.where(gnorm > cfg.grad_clip,
                             cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                             torch.ones_like(gnorm))
@@ -63,6 +101,10 @@ def adamw_update(cfg: AdamWConfig, grads: Params, params: Params,
         bc2 = float(np.float32(1.0) - np.float32(cfg.b2) ** t)
 
         def upd(p, g, mu, nu):
+            if is_dtensor(p):
+                if g.placements != p.placements:
+                    g = g.redistribute(p.device_mesh, p.placements)
+                p, g, mu, nu = (x.to_local() for x in (p, g, mu, nu))
             g = g.float() * scale
             mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
             nu.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())

@@ -40,6 +40,11 @@ SLICE_MODULES = [
     "ray_tpu_torch.train",
     "ray_tpu_torch.train.optim",
     "ray_tpu_torch.train.train_step",
+    "ray_tpu_torch.train.checkpoint",
+    "ray_tpu_torch.parallel",
+    "ray_tpu_torch.parallel.mesh",
+    "ray_tpu_torch.parallel.distributed",
+    "ray_tpu_torch.parallel.sharding",
     "ray_tpu_torch.scripts",
     "ray_tpu_torch.scripts.flash_bench",
     "ray_tpu_torch.scripts.measure",
