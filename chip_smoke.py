@@ -53,14 +53,22 @@ that fails:
      2048, batch 4) through ``measure_llama`` with ``LLAMA_FLAGS`` (flash
      attention, RMSNorm kernels, dots remat; the Llama main path: 2 warmup
      and 4 timed steps);
+   - the MoE model (``MoEConfig.small()``: Llama small's attention with
+     each MLP a top-2 mixture of 8 SiLU experts, capacity factor 1.25;
+     846M parameters, 292M active a token; seq 2048, batch 4) through
+     ``measure_moe`` with ``MOE_FLAGS`` (flash attention, dots remat, the
+     plain RMSNorm chain as in the JAX module; the MoE main path: 2 warmup
+     and 4 timed steps): the three flash kernels only;
    six steps, because the GPT-2 run (AdamW at 3e-4 with no warmup, one
    batch repeated) turns unstable at the seventh on every path, the
    fully plain one included: its seventh loss lands anywhere from 9.9 to
    11.8, above the first, depending on bf16 rounding alone;
 5. the mesh of 1: a one-rank NCCL group (``parallel.distributed.
-   initialize``) and ``build_mesh(MeshConfig(fsdp=-1))``; the GPT-2 and
-   Llama main-path steps of phase 4 again, sharded over that mesh through
-   ``measure_gpt2`` / ``measure_llama(mesh=...)`` (DTensor parameters and
+   initialize``) and ``build_mesh(MeshConfig(fsdp=-1))``; the GPT-2, Llama
+   and MoE main-path steps of phase 4 again, sharded over that mesh through
+   ``measure_gpt2`` / ``measure_llama`` / ``measure_moe(mesh=...)`` (the
+   MoE with ``expert_parallel``: its experts exchanged by all_to_all over
+   the one-rank ``ep`` group; DTensor parameters and
    moments, gathered to plain tensors for the model), each with every
    kernel counter set to 0 just before it and read just after: the losses
    against phase 4's (same init and batch; the first within rtol 1e-5,
@@ -69,13 +77,20 @@ that fails:
    4's; then ``save_sharded`` of the GPT-2 state after one step and
    ``load_sharded`` onto the same mesh, every leaf bit for bit (bytes and
    seconds printed); then, where there are two CUDA devices, 2 NCCL ranks
-   of GPT-2 small at fsdp=2 (this script with ``--mesh-rank``): the first
-   loss within rtol 1e-4 of the mesh of 1 and the rest within 1e-2 --
-   with one device a line says the 2-rank run did not run;
+   of GPT-2 small at fsdp=2 and 2 of the MoE at ep=2 (each rank the whole
+   batch, its 4 experts, the tokens exchanged by all_to_all; this script
+   with ``--mesh-rank``): the first loss within rtol 1e-4 of the mesh of 1
+   and the rest within 1e-2 -- with one device a line says the 2-rank runs
+   did not run;
 6. kernel path vs plain path, same weights and batch: GPT-2 (batch 4)
    flash + fused norms, and dense + fused norms, each against fully plain
    (dense attention, ``fused_norm=False``); Llama (batch 2) flash + RMSNorm
-   kernels, and dense + RMSNorm kernels, each against fully plain;
+   kernels, and dense + RMSNorm kernels, each against fully plain; the MoE
+   (batch 2) with flash against dense attention, the dense path's top-k
+   choices replayed in the flash path (``compare_moe_paths``: routing is
+   discontinuous, so the free-running flash path is held on its loss
+   alone, its gradient cosine and the token-layers it routes otherwise
+   printed);
 7. serving: two ``LLMEngine``s at full width through ``measure_serve``
    (every kernel counter set to 0 just before each and read just after:
    the serving path reaches no kernel, as in the reference), each serving
@@ -101,7 +116,8 @@ that fails:
    ms graph and eager, prefill ms, TTFT p50/p99, peak memory) are
    printed beside the card's name and power limit;
 8. one JSON line of every TPU kernel of the JAX package, all ported, with
-   its launches on its main path and over the mesh of 1;
+   its launches on its main path and over the mesh of 1 (the flash
+   kernels: GPT-2's, with Llama's and the MoE's beside them);
 9. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerances: fused-norm (LayerNorm, RMSNorm, GELU) fp32 outputs within
@@ -128,6 +144,7 @@ Exits non-zero, printing no result, when CUDA is not available or when the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -183,6 +200,8 @@ EXPECTED_DENSE = dict(EXPECTED_PER_STEP, flash_fwd=0, flash_dkv=0, flash_dq=0)
 EXPECTED_LLAMA = {"ln_fwd": 0, "ln_bwd": 0, "gelu_fwd": 0, "gelu_bwd": 0,
                   "rms_fwd": 65, "rms_bwd": 33, "flash_fwd": 32,
                   "flash_dkv": 16, "flash_dq": 16}
+# The MoE step: Llama's attention over 16 blocks, its norms the plain chain.
+EXPECTED_MOE = dict(EXPECTED_LLAMA, rms_fwd=0, rms_bwd=0)
 # Flash check shapes (b, t, h, d, causal): the GPT-2-small one first.
 # Then the tile edges of the warp-specialised kernels (128-row fixed tiles;
 # swept tiles of 128 or 64 keys in flash_fwd, 64 or 16 q rows in flash_dkv,
@@ -590,17 +609,22 @@ def run_step(torch, counters, label, measure, cfg, batch, warmup, steps,
     return step
 
 
-def compare_paths(torch, loss_fn, params, tokens, paths):
+def compare_paths(torch, loss_fn, params, tokens, paths, contexts=None,
+                  loss_only=()):
     """Loss and whole-tree gradient of every path in ``paths`` (name ->
-    config) on the same weights and batch; each path other than "plain"
-    against "plain": loss within rtol 1e-2, gradient cosine > 0.999."""
+    config, run in that order, each inside ``contexts[name]()`` where
+    given) on the same weights and batch; each path other than "plain"
+    against "plain": loss within rtol 1e-2, and, unless the path is in
+    ``loss_only``, gradient cosine > 0.999."""
     from ray_tpu_torch._tree import tree_leaves
     from ray_tpu_torch.train.train_step import value_and_grad
 
+    contexts = contexts or {}
     out = {}
     for pname, c in paths.items():
-        loss, grads = value_and_grad(lambda p, b: loss_fn(p, b, c), params,
-                                     {"tokens": tokens})
+        with contexts.get(pname, contextlib.nullcontext)():
+            loss, grads = value_and_grad(lambda p, b: loss_fn(p, b, c),
+                                         params, {"tokens": tokens})
         leaves = tree_leaves(grads)
         require(all(a.shape == p.shape for a, p in zip(leaves,
                                                        tree_leaves(params))),
@@ -617,9 +641,70 @@ def compare_paths(torch, loss_fn, params, tokens, paths):
         report[pname] = {"loss_kernel": loss_k, "loss_plain": loss_p,
                          "loss_rel_diff": rel, "grad_cosine": cos}
         print(f"{pname} vs plain path: loss {loss_k:.6f} vs {loss_p:.6f} "
-              f"(rel {rel:.2e}), gradient cosine {cos:.6f}")
+              f"(rel {rel:.2e}), gradient cosine {cos:.6f}"
+              f"{' (printed, not held)' if pname in loss_only else ''}")
         require(rel <= 1e-2, f"{pname}: losses differ by {rel:.3e} (rtol 1e-2)")
-        require(cos > 0.999, f"{pname}: gradient cosine {cos} <= 0.999")
+        if pname not in loss_only:
+            require(cos > 0.999, f"{pname}: gradient cosine {cos} <= 0.999")
+    return report
+
+
+def compare_moe_paths(torch, loss_fn, params, tokens, cfg):
+    """The MoE on flash against dense attention (phase 6). Its router's
+    top-k is a discrete choice: a bf16 rounding difference in attention
+    moves a token whose k-th and (k+1)-th probabilities nearly tie to
+    another expert, and shifts the buffer slots (so the drops) of the
+    tokens after it. So the whole-tree gradient is held (cosine > 0.999)
+    with the plain path's choices replayed in the flash path -- the gates
+    still the flash path's own probabilities of those experts -- and the
+    free-running flash path is held on its loss alone, its gradient cosine
+    and the token-layers it routes differently printed."""
+    from ray_tpu_torch.ops import moe as moe_ops
+
+    top_k = moe_ops._top_k
+    routes = {"plain": [], "moe flash": []}
+
+    @contextlib.contextmanager
+    def patched(fn):
+        moe_ops._top_k = fn
+        try:
+            yield
+        finally:
+            moe_ops._top_k = top_k
+
+    def recording(name):
+        def rec(probs, k):
+            values, idx = top_k(probs, k)
+            routes[name].append(idx)
+            return values, idx
+        return patched(rec)
+
+    def replaying():
+        recorded = iter(routes["plain"])
+
+        def rep(probs, k):
+            idx = next(recorded)
+            return probs.gather(1, idx), idx
+        return patched(rep)
+
+    report = compare_paths(
+        torch, loss_fn, params, tokens,
+        {"plain": dataclasses.replace(cfg, use_flash=False),
+         "moe flash": cfg, "moe flash, plain routes": cfg},
+        contexts={"plain": lambda: recording("plain"),
+                  "moe flash": lambda: recording("moe flash"),
+                  "moe flash, plain routes": replaying},
+        loss_only=("moe flash",))
+    # The forward's choices: the first n_layer calls (the recompute's
+    # repeat them).
+    pairs = list(zip(routes["plain"], routes["moe flash"]))[:cfg.n_layer]
+    moved = sum(int((a.sort(dim=1).values != b.sort(dim=1).values)
+                    .any(dim=1).sum()) for a, b in pairs)
+    rows = sum(a.shape[0] for a, _ in pairs)
+    report["moe flash"]["token_layers_routed_differently"] = moved
+    report["moe flash"]["token_layers"] = rows
+    print(f"moe flash vs plain path: {moved} of {rows} token-layers choose "
+          f"other experts ({moved / rows:.3%})")
     return report
 
 
@@ -773,17 +858,21 @@ def checkpoint_round_trip(torch, mesh, cfg, smi):
 
 def mesh_phase(torch, counters, unsharded, smi):
     """Phase 5: a one-rank NCCL group and ``build_mesh(MeshConfig(fsdp=-1))``;
-    the GPT-2 and Llama main-path steps through ``measure_*(mesh=...)``,
-    each with every kernel counter set to 0 just before it and read just
-    after, held to the unsharded runs of phase 4 (``unsharded``: same init
-    and batch); then the checkpoint round trip; then 2 NCCL ranks of GPT-2
-    at fsdp=2 where there are two cards. Returns the report entries."""
+    the GPT-2, Llama and MoE (expert-parallel over the one-rank ``ep``
+    group) main-path steps through ``measure_*(mesh=...)``, each with every
+    kernel counter set to 0 just before it and read just after, held to
+    the unsharded runs of phase 4 (``unsharded``: same init and batch);
+    then the checkpoint round trip; then 2 NCCL ranks of GPT-2 at fsdp=2
+    and of the MoE at ep=2 where there are two cards. Returns the report
+    entries."""
     from ray_tpu_torch.models.gpt2 import GPT2Config
     from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.models.moe import MoEConfig
     from ray_tpu_torch.parallel import distributed
     from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
     from ray_tpu_torch.scripts.measure import (FUSED_FLAGS, LLAMA_FLAGS,
-                                               measure_gpt2, measure_llama)
+                                               MOE_FLAGS, measure_gpt2,
+                                               measure_llama, measure_moe)
 
     out = {}
     t0 = time.perf_counter()
@@ -797,7 +886,9 @@ def mesh_phase(torch, counters, unsharded, smi):
                 ("gpt2", "GPT-2", measure_gpt2, GPT2Config(**FUSED_FLAGS),
                  BATCH),
                 ("llama", "Llama", measure_llama, LlamaConfig(**LLAMA_FLAGS),
-                 L_BATCH)):
+                 L_BATCH),
+                ("moe", "MoE", measure_moe,
+                 MoEConfig(**MOE_FLAGS, expert_parallel=True), L_BATCH)):
             ref = unsharded[key]
             for c in counters:
                 c.clear()
@@ -832,26 +923,35 @@ def mesh_phase(torch, counters, unsharded, smi):
             torch, mesh, GPT2Config(**FUSED_FLAGS), smi)
     finally:
         distributed.shutdown()
-    out["two_ranks"] = two_rank_phase(torch, out["gpt2"], smi)
+    out["two_ranks"] = two_rank_phase(torch, out["gpt2"], smi, "gpt2")
+    out["two_ranks_moe"] = two_rank_phase(torch, out["moe"], smi, "moe")
     return out
 
 
-def two_rank_phase(torch, one_rank, smi):
-    """GPT-2 small at fsdp=2 on 2 NCCL ranks (this script with
-    ``--mesh-rank``), where there are two cards: the first loss within
-    rtol 1e-4 of the mesh of 1, the later ones within the bf16 rule (rtol
-    1e-2). Otherwise one line saying why it did not run."""
+# The 2-rank runs: (mesh axis over the two ranks, global batch, label).
+TWO_RANK_RUNS = {"gpt2": ("fsdp", BATCH, "GPT-2 small"),
+                 "moe": ("ep", L_BATCH, "MoE small")}
+
+
+def two_rank_phase(torch, one_rank, smi, model):
+    """``model`` on 2 NCCL ranks (this script with ``--mesh-rank``), where
+    there are two cards: GPT-2 small at fsdp=2, or the MoE at ep=2 (each
+    rank routes the whole batch and computes its 4 experts). The first
+    loss within rtol 1e-4 of the mesh of 1, the later ones within the bf16
+    rule (rtol 1e-2). Otherwise one line saying why it did not run."""
+    axis, batch, label = TWO_RANK_RUNS[model]
     n = torch.cuda.device_count()
     if n < 2:
-        print(f"mesh of 2: not run: {n} CUDA device (needs 2)")
+        print(f"mesh of 2 ({axis}=2, {label}): not run: {n} CUDA device "
+              "(needs 2)")
         return {"ran": False, "devices": n}
     from ray_tpu_torch.parallel.distributed import free_port
 
-    result = OUT / "mesh2.json"
+    result = OUT / f"mesh2_{model}.json"
     result.unlink(missing_ok=True)
     address = f"127.0.0.1:{free_port()}"
     procs = [subprocess.Popen([sys.executable, __file__, "--mesh-rank",
-                               str(r), "2", address, str(result)])
+                               str(r), "2", address, str(result), model])
              for r in range(2)]
     try:
         rcs = [p.wait(timeout=600) for p in procs]
@@ -860,38 +960,48 @@ def two_rank_phase(torch, one_rank, smi):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    require(rcs == [0, 0], f"mesh of 2: ranks exited {rcs}")
+    require(rcs == [0, 0], f"mesh of 2 ({model}): ranks exited {rcs}")
     r = json.loads(result.read_text())
     gaps = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
                                                 one_rank["losses"])]
-    print(f"mesh of 2 (fsdp=2), GPT-2 small batch {BATCH} [{smi}]: "
+    print(f"mesh of 2 ({axis}=2), {label} batch {batch} [{smi}]: "
           f"{r['ms_step']:.2f} ms/step, {r['tok_s']:.1f} tok/s, MFU "
           f"{r['mfu']:.2f}%, rank 0 peak memory "
           f"{r['peak_memory_bytes'] / 2**30:.3f} GiB; losses "
           f"{[round(x, 4) for x in r['losses']]}, relative gaps to the mesh "
           f"of 1 {[f'{g:.2e}' for g in gaps]}")
-    require(gaps[0] <= 1e-4, f"mesh of 2: first loss off by {gaps[0]:.3e}")
-    require(max(gaps) <= 1e-2, f"mesh of 2: losses off by {max(gaps):.3e}")
+    require(gaps[0] <= 1e-4, f"mesh of 2 ({model}): first loss off by "
+            f"{gaps[0]:.3e}")
+    require(max(gaps) <= 1e-2, f"mesh of 2 ({model}): losses off by "
+            f"{max(gaps):.3e}")
     return {"ran": True, **r, "loss_rel_gaps": gaps}
 
 
-def mesh_rank_main(rank: int, world: int, address: str, result: str) -> int:
+def mesh_rank_main(rank: int, world: int, address: str, result: str,
+                   model: str) -> int:
     """One NCCL rank of ``two_rank_phase``; rank 0 writes the result."""
     import torch
 
     from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.models.moe import MoEConfig
     from ray_tpu_torch.parallel import distributed
     from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
-    from ray_tpu_torch.scripts.measure import FUSED_FLAGS, measure_gpt2
+    from ray_tpu_torch.scripts.measure import (FUSED_FLAGS, MOE_FLAGS,
+                                               measure_gpt2, measure_moe)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     distributed.initialize("chip-smoke-2", rank, world,
                            coordinator_address=address)
     try:
-        mesh = build_mesh(MeshConfig(fsdp=world))
-        r = measure_gpt2(GPT2Config(**FUSED_FLAGS), BATCH, steps=STEPS,
-                         warmup=WARMUP, mesh=mesh)
+        if model == "gpt2":
+            r = measure_gpt2(GPT2Config(**FUSED_FLAGS), BATCH, steps=STEPS,
+                             warmup=WARMUP,
+                             mesh=build_mesh(MeshConfig(fsdp=world)))
+        else:
+            r = measure_moe(MoEConfig(**MOE_FLAGS, expert_parallel=True),
+                            L_BATCH, steps=STEPS, warmup=WARMUP,
+                            mesh=build_mesh(MeshConfig(fsdp=1, ep=world)))
     finally:
         distributed.shutdown()
     if rank == 0:
@@ -925,13 +1035,15 @@ def main() -> int:
 
     from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init, gpt2_loss
     from ray_tpu_torch.models.llama import LlamaConfig, llama_init, llama_loss
+    from ray_tpu_torch.models.moe import MoEConfig, moe_init, moe_loss
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import fused_norm as fn
     from ray_tpu_torch.ops.attention import dense_causal_attention
     from ray_tpu_torch.scripts.measure import (FUSED_DENSE_FLAGS, FUSED_FLAGS,
-                                               LLAMA_FLAGS, device_spec,
-                                               measure_gpt2, measure_llama)
+                                               LLAMA_FLAGS, MOE_FLAGS,
+                                               device_spec, measure_gpt2,
+                                               measure_llama, measure_moe)
 
     OUT.mkdir(exist_ok=True)
     report = {"nvidia_smi": smi, "device": name}
@@ -1037,7 +1149,7 @@ def main() -> int:
     require(not failures, "kernel vs plain: " + "; ".join(failures))
 
     # Phase 4: the train steps -- GPT-2's main path (flash) first, then
-    # GPT-2 with dense attention, then Llama's main path.
+    # GPT-2 with dense attention, then Llama's main path, then the MoE's.
     counters = (fn.KERNEL_INVOCATIONS, fa.KERNEL_INVOCATIONS)
     cfg = GPT2Config(**FUSED_FLAGS)
     step = run_step(torch, counters, "GPT-2", measure_gpt2, cfg, BATCH,
@@ -1050,10 +1162,20 @@ def main() -> int:
     lstep = run_step(torch, counters, "Llama", measure_llama, lcfg, L_BATCH,
                      WARMUP, STEPS, EXPECTED_LLAMA)
     report["train_step_llama"] = lstep
+    mcfg = MoEConfig(**MOE_FLAGS)
+    mstep = run_step(torch, counters, "MoE", measure_moe, mcfg, L_BATCH,
+                     WARMUP, STEPS, EXPECTED_MOE)
+    print(f"MoE: {mcfg.n_active_params / 1e6:.0f}M of "
+          f"{mcfg.n_params / 1e6:.0f}M parameters active a token; "
+          f"{mcfg.n_experts} experts, top-{mcfg.top_k}, capacity "
+          f"{int(mcfg.capacity_factor * L_ROWS / mcfg.n_experts)} tokens an "
+          f"expert of {L_ROWS} a step [{smi}]")
+    report["train_step_moe"] = mstep
 
-    # Phase 5: the same steps over a mesh of 1 (this slice's main path),
-    # the sharded checkpoint, and 2 ranks where there are two cards.
-    mesh = mesh_phase(torch, counters, {"gpt2": step, "llama": lstep}, smi)
+    # Phase 5: the same steps over a mesh of 1, the sharded checkpoint,
+    # and 2 ranks where there are two cards.
+    mesh = mesh_phase(torch, counters,
+                      {"gpt2": step, "llama": lstep, "moe": mstep}, smi)
     report["mesh"] = mesh
 
     # Phase 6: kernel paths vs the plain path, same weights and batch.
@@ -1077,14 +1199,18 @@ def main() -> int:
          "plain": dataclasses.replace(lcfg, fused_norm=False,
                                       use_flash=False)}))
     del params
+    params = moe_init(gen.manual_seed(0), mcfg, device="cuda")
+    report["kernel_vs_plain_path"].update(compare_moe_paths(
+        torch, moe_loss, params, tokens, mcfg))
+    del params
 
     # Phase 7: the serving engines.
     report["serving"] = serve_phase(torch, counters, smi)
 
     # Phase 8: the kernels line. Each kernel's launches are those of the
-    # main path it belongs to (the flash kernels: GPT-2's, with Llama's
-    # beside them), and ``launches_mesh`` those of the same path over the
-    # mesh of 1.
+    # main path it belongs to (the flash kernels: GPT-2's, with Llama's and
+    # the MoE's beside them), and ``launches_mesh`` those of the same path
+    # over the mesh of 1.
     kernels = []
     for kname, where, body in TPU_KERNELS:
         bf = results["bfloat16"][kname]
@@ -1116,6 +1242,10 @@ def main() -> int:
                 **{k: report["flash_llama_shape"][kname][k] for k in
                    ("max_abs_err", "ms", "host_us", "plain_ms", "library_ms",
                     "bound_ms")}}
+            entry["moe"] = {
+                "launches": mstep["launches"][kname],
+                "launches_mesh": mesh["moe"]["launches"][kname],
+                "launches_per_step": mstep["launches_per_step"][kname]}
         else:
             f32 = results["float32"][kname]
             entry["fp32"] = {k: f32[k] for k in ("max_abs_err", "ms",
@@ -1135,5 +1265,5 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
-                                sys.argv[4], sys.argv[5]))
+                                sys.argv[4], sys.argv[5], sys.argv[6]))
     sys.exit(main())

@@ -20,6 +20,8 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from ray_tpu_torch._tree import tree_map
+
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
@@ -30,7 +32,7 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def remat_block(block: Callable, remat: Any) -> Callable:
-    """``block(x, p)`` wrapped for the ``remat`` setting."""
+    """``block(carry, p)`` wrapped for the ``remat`` setting."""
     if remat == "dots":
         ctx_fn = functools.partial(create_selective_checkpoint_contexts,
                                    _save_dots)
@@ -41,16 +43,18 @@ def remat_block(block: Callable, remat: Any) -> Callable:
     return block
 
 
-def run_layers(block_fn: Callable, x, blocks: dict, n_layer: int):
-    """Apply ``block_fn`` once per layer over per-layer views of the
-    stacked ``[n_layer, ...]`` leaves of ``blocks``. ``unbind``, not
-    ``v[i]``: its backward stacks the per-layer gradients once, where
-    indexing would scatter each layer's gradient into a zeroed full-size
-    tensor and add ``n_layer`` of those up."""
-    layers = {k: v.unbind(0) for k, v in blocks.items()}
+def run_layers(block_fn: Callable, carry, blocks: dict, n_layer: int):
+    """Apply ``carry = block_fn(carry, layer)`` once per layer, ``layer``
+    the per-layer views of the stacked ``[n_layer, ...]`` leaves of the
+    (nested) ``blocks`` tree. The carry is whatever the block takes and
+    returns: GPT-2's and Llama's ``x``, the MoE model's ``(x, aux)``.
+    ``unbind``, not ``v[i]``: its backward stacks the per-layer gradients
+    once, where indexing would scatter each layer's gradient into a zeroed
+    full-size tensor and add ``n_layer`` of those up."""
+    layers = tree_map(lambda v: v.unbind(0), blocks)
     for i in range(n_layer):
-        x = block_fn(x, {k: v[i] for k, v in layers.items()})
-    return x
+        carry = block_fn(carry, tree_map(lambda v: v[i], layers))
+    return carry
 
 
 def check_attention_impl(impl: str) -> None:

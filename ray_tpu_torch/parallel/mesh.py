@@ -24,8 +24,9 @@ What differs from the JAX module, and why:
 * Ranks carry no slice index, so ``build_hybrid_mesh`` always takes the
   JAX module's path for hosts without one: the ranks split evenly, in
   order, into ``dcn_dp * dcn_pp`` synthetic slices.
-* Only ``dp`` and ``fsdp`` may exceed 1 in a train step
-  (``train/train_step.py``); a mesh of another shape may still be built.
+* Only ``dp``, ``fsdp`` and ``ep`` (the MoE model's experts) may exceed 1
+  in a train step (``train/train_step.py``); a mesh of another shape may
+  still be built.
 """
 
 from __future__ import annotations

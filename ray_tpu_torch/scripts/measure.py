@@ -1,8 +1,9 @@
 """Throughput-measurement harness (port of ``ray_tpu/scripts/measure.py``).
 
 One definition of the timed-step protocol (warmup, a device sync, timed
-steps, tok/s and MFU accounting), shared by ``measure_gpt2`` and
-``measure_llama``, and the per-device peak table that MFU is taken against;
+steps, tok/s and MFU accounting), shared by ``measure_gpt2``,
+``measure_llama`` and ``measure_moe``, and the per-device peak table that
+MFU is taken against;
 ``measure_serve`` is their serving counterpart, over ``LLMEngine``, and
 ``serve_vs_naive`` holds the engine's greedy tokens against the model's
 full-forward loop, and ``served_vs_fp32`` the engine's logits at its
@@ -44,6 +45,9 @@ FUSED_DENSE_FLAGS = dict(FUSED_FLAGS, use_flash=False)
 # kernels under dots remat (LlamaConfig has no logits or CE options).
 LLAMA_FLAGS = dict(remat="dots", scan_layers=False, use_flash=True,
                    fused_norm=True)
+# The MoE train step: flash attention under dots remat; its norms are the
+# plain chain, as in the JAX module, so it takes no fused_norm.
+MOE_FLAGS = dict(remat="dots", scan_layers=False, use_flash=True)
 
 
 def device_spec(device_name: str) -> dict[str, float]:
@@ -76,7 +80,8 @@ def _sync(device: torch.device) -> None:
 def _measure(init_params, loss_fn, vocab_size: int, seq_len: int,
              flops_per_token: float, batch: int, steps: int, warmup: int,
              device: torch.device, mesh=None, shardings=None) -> dict:
-    """The timed-step protocol behind ``measure_gpt2`` and ``measure_llama``.
+    """The timed-step protocol behind ``measure_gpt2``, ``measure_llama``
+    and ``measure_moe``.
 
     Initialises the state from seed 0 (``init_params(generator)``) and a
     fixed batch from seed 1, runs ``warmup`` steps, syncs the device
@@ -177,6 +182,29 @@ def measure_llama(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
                     cfg.seq_len, llama_flops_per_token(cfg), batch, steps,
                     warmup, device, mesh,
                     llama_shardings(cfg, mesh) if mesh is not None else None)
+
+
+def measure_moe(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
+                device=None, mesh=None) -> dict:  # step-timed
+    """Timed MoE train-step loop -> measurement dict (see ``_measure``);
+    MFU from ``moe_flops_per_token`` (the active parameters); with
+    ``mesh`` the step is sharded by ``moe_shardings`` and the model runs
+    on that mesh (the all_to_all path where ``cfg.expert_parallel``)."""
+    from ray_tpu_torch.models.moe import (
+        moe_flops_per_token,
+        moe_init,
+        moe_loss,
+        moe_shardings,
+    )
+
+    device = resolve_device(device)
+    if mesh is not None:
+        cfg = dataclasses.replace(cfg, mesh=mesh)
+    return _measure(lambda g: moe_init(g, cfg, device=device),
+                    lambda p, b: moe_loss(p, b, cfg), cfg.vocab_size,
+                    cfg.seq_len, moe_flops_per_token(cfg), batch, steps,
+                    warmup, device, mesh,
+                    moe_shardings(cfg, mesh) if mesh is not None else None)
 
 
 # The serving engines' settings at full width, by family: 32 slots, a ring

@@ -1,21 +1,25 @@
 """Where a train step's (or a serving decode step's) device time goes.
 
-Profiles ``--steps`` train steps of a GPT-2 or Llama config on one GPU
+Profiles ``--steps`` train steps of a GPT-2, Llama or MoE config on one GPU
 with ``torch.profiler`` (after warmup steps and as many unprofiled, timed
 steps) and prints one JSON object: the step's wall time with and without
 the profiler, the summed device-kernel time and busy share, the time per
 kernel class (the port's flash, RMSNorm and other fused-norm kernels,
-matrix products, softmax, reductions, other elementwise, the rest), the top
-kernels by device time, and the top PyTorch operators by the device time of
-the kernels they launched themselves.
+fp32 and other matrix products, softmax, reductions, other elementwise,
+the rest), the top kernels by device time, and the top PyTorch operators
+by the device time of the kernels they launched themselves.
 
-    python -m ray_tpu_torch.scripts.profile_step [--config flash|dense|llama]
-        [--batch N] [--steps 2] [--mesh] [--out profile_step.json]
+    python -m ray_tpu_torch.scripts.profile_step
+        [--config flash|dense|llama|moe] [--batch N] [--steps 2] [--mesh]
+        [--out profile_step.json]
 
 ``flash`` (the default) is GPT-2 small with ``measure.FUSED_FLAGS``,
 ``dense`` the same with ``measure.FUSED_DENSE_FLAGS`` (both batch 8 unless
 ``--batch``); ``llama`` is ``LlamaConfig.small()`` with
-``measure.LLAMA_FLAGS`` (batch 4 unless ``--batch``). ``serve-gpt2`` and
+``measure.LLAMA_FLAGS`` (batch 4 unless ``--batch``); ``moe`` is
+``MoEConfig.small()`` with ``measure.MOE_FLAGS`` (batch 4 unless
+``--batch``), whose fp32 dispatch, combine and expert products are the
+``matmul_fp32`` class. ``serve-gpt2`` and
 ``serve-llama`` profile ``--steps`` replays of an ``LLMEngine``'s captured
 decode step (``measure.SERVE_ENGINES`` settings, 32 slots, random tokens
 and positions), each replay followed by the step's device sync, with no
@@ -49,6 +53,8 @@ CLASSES = (
     ("fused_norm", ("ln_fwd_kernel", "ln_fwd_wide_kernel", "ln_bwd_kernel",
                     "ln_bwd_wide_kernel", "norm_bwd_sum_kernel",
                     "gelu_fwd_kernel", "gelu_bwd_kernel")),
+    # fp32 GEMMs (TF32 off): cuBLAS's sgemm / f32f32 / nvjet_sss names.
+    ("matmul_fp32", ("sgemm", "f32f32", "nvjet_sss")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("softmax", ("softmax",)),
     ("reduce", ("reduce",)),
@@ -64,7 +70,7 @@ def classify(name: str) -> str:
     return "other"
 
 
-DEFAULT_BATCH = {"flash": 8, "dense": 8, "llama": 4}
+DEFAULT_BATCH = {"flash": 8, "dense": 8, "llama": 4, "moe": 4}
 MESH_PAIRS = 10
 SERVE_CONFIGS = ("serve-gpt2", "serve-llama")
 
@@ -72,13 +78,17 @@ SERVE_CONFIGS = ("serve-gpt2", "serve-llama")
 def _model(config: str):
     """(cfg, init(generator, cfg, device=...), loss(params, batch, cfg),
     shardings(cfg, mesh))."""
-    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.models import gpt2, llama, moe
     from ray_tpu_torch.scripts.measure import (FUSED_DENSE_FLAGS,
-                                               FUSED_FLAGS, LLAMA_FLAGS)
+                                               FUSED_FLAGS, LLAMA_FLAGS,
+                                               MOE_FLAGS)
 
     if config == "llama":
         return (llama.LlamaConfig(**LLAMA_FLAGS), llama.llama_init,
                 llama.llama_loss, llama.llama_shardings)
+    if config == "moe":
+        return (moe.MoEConfig(**MOE_FLAGS), moe.moe_init, moe.moe_loss,
+                moe.moe_shardings)
     flags = {"flash": FUSED_FLAGS, "dense": FUSED_DENSE_FLAGS}[config]
     return (gpt2.GPT2Config(**flags), gpt2.gpt2_init, gpt2.gpt2_loss,
             gpt2.gpt2_shardings)

@@ -12,9 +12,9 @@ the parameters and AdamW moments are DTensors laid out by
 * keeps this rank's rows of the global batch, by ``batch_spec``;
 * gathers every parameter to a plain full tensor, whose gradient
   placements are ``Partial("avg")`` over the mesh axes the batch is
-  sharded over, so the backward reduce-scatters (or all-reduces) the
-  gradients to the parameters' own placements -- the collectives XLA
-  inserts from the shardings in the JAX package;
+  sharded over and over ``ep``, so the backward reduce-scatters (or
+  all-reduces) the gradients to the parameters' own placements -- the
+  collectives XLA inserts from the shardings in the JAX package;
 * runs the model on plain tensors only, so a DTensor never reaches a
   kernel wrapper;
 * updates the local shards (``train/optim.py``) and returns the global
@@ -30,9 +30,18 @@ What differs from the JAX module, and why:
   and init draws the full tree on every rank before sharding it; JAX
   initialises sharded, without a full copy. At GPT-2 and Llama small a
   full copy on each rank fits.
-* Only ``dp`` and ``fsdp`` may exceed 1: ``tp``, ``sp``, ``pp`` and ``ep``
-  above 1 need the model to compute sharded, which is not ported, and
-  raise rather than run as storage-only sharding.
+* Only ``dp``, ``fsdp`` and ``ep`` may exceed 1: ``tp``, ``sp`` and
+  ``pp`` above 1 need the model to compute sharded, which is not ported,
+  and raise rather than run as storage-only sharding.
+
+``ep`` is the MoE model's expert axis (``models/moe.py`` with
+``expert_parallel``). The batch is replicated over it, so every ``ep``
+rank computes the same loss, and a rank's expert weights get the
+gradient of all ``ep`` ranks' losses through the expert exchange: its own
+experts' slice ``ep`` times over, the other experts' none. The mean over
+``ep`` is therefore the gradient of the one loss, for the expert weights
+and, since every rank computes the same gradient of the others, for every
+other parameter.
 """
 
 from __future__ import annotations
@@ -57,8 +66,12 @@ _NOT_PORTED_AXES = {
     "tp": "tensor parallelism (ROADMAP A10b)",
     "sp": "ring / Ulysses sequence parallelism (ROADMAP A10, A11)",
     "pp": "the pipeline (ROADMAP A13)",
-    "ep": "expert parallelism (ROADMAP A12)",
 }
+
+# Mesh axes over which the gathered parameters' gradients are averaged
+# besides the batch's: the batch is replicated over ``ep``, the expert
+# weights' gradients are not (see above).
+_GRAD_MEAN_AXES = {"ep"}
 
 
 def state_shardings(param_shardings: Params) -> TrainState:
@@ -79,12 +92,12 @@ def batch_sharding(mesh, spec=None):
 
 def _check_mesh(mesh) -> None:
     """Raise unless the step can run on ``mesh``: every rank of the default
-    group in it, and no axis but ``dp`` and ``fsdp`` above 1."""
+    group in it, and no axis but ``dp``, ``fsdp`` and ``ep`` above 1."""
     for name, size in zip(mesh.mesh_dim_names, mesh.shape):
         if size > 1 and name in _NOT_PORTED_AXES:
             raise NotImplementedError(
                 f"mesh axis {name}={size}: {_NOT_PORTED_AXES[name]} is not "
-                "ported; only dp and fsdp may exceed 1")
+                "ported; only dp, fsdp and ep may exceed 1")
     if mesh.size() != dist.get_world_size():
         raise ValueError(f"the mesh holds {mesh.size()} of "
                          f"{dist.get_world_size()} ranks; it must hold all")
@@ -179,8 +192,9 @@ def make_train_step(loss_fn: Callable[[Params, Any], torch.Tensor],
         batch_spec = DEFAULT_BATCH_SPEC
     spec_placements(batch_spec, mesh.mesh_dim_names)  # raises if invalid
     batch_axes = {a for entry in batch_spec for a in spec_axes(entry)}
+    mean_axes = batch_axes | _GRAD_MEAN_AXES
     grad_placements = tuple(
-        Partial("avg") if name in batch_axes and size > 1 else Replicate()
+        Partial("avg") if name in mean_axes and size > 1 else Replicate()
         for name, size in zip(mesh.mesh_dim_names, mesh.shape))
     replicated = (Replicate(),) * mesh.ndim
     coord = mesh.get_coordinate()

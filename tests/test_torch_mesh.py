@@ -260,12 +260,18 @@ def _tiny_loss(p, b):
 @pytest.mark.parametrize("axis,item", [("tp", "A10b"), ("sp", "A10"),
                                        ("pp", "A13"), ("ep", "A12")])
 def test_unported_axes_raise_in_the_train_step(axis, item):
-    """tp/sp/pp/ep above 1 need the model to compute sharded: the step and
-    the init raise rather than store the state sharded over them."""
+    """tp/sp/pp above 1 need the model to compute sharded: the step and
+    the init raise rather than store the state sharded over them. ep
+    (A12) is ported with the MoE model: the step and the init build on a
+    mesh with ep=2 (tests/test_torch_moe_ep.py runs them)."""
     with fake_world(2):
         m = tmesh.build_mesh(tmesh.MeshConfig(fsdp=1, **{axis: 2}),
                              device="cpu")
         sh = tgpt2.gpt2_shardings(tgpt2.GPT2Config.tiny(), m)
+        if axis == "ep":
+            assert callable(make_train_step(_tiny_loss, sh, m))
+            assert callable(make_init_fn(lambda g: None, sh, m))
+            return
         with pytest.raises(NotImplementedError, match=f"{axis}=2.*{item}"):
             make_train_step(_tiny_loss, sh, m)
         with pytest.raises(NotImplementedError, match=f"{axis}=2.*{item}"):

@@ -32,10 +32,12 @@ SLICE_MODULES = [
     "ray_tpu_torch.ops.attention",
     "ray_tpu_torch.ops.flash_attention",
     "ray_tpu_torch.ops.fused_norm",
+    "ray_tpu_torch.ops.moe",
     "ray_tpu_torch.models",
     "ray_tpu_torch.models._remat",
     "ray_tpu_torch.models.gpt2",
     "ray_tpu_torch.models.llama",
+    "ray_tpu_torch.models.moe",
     "ray_tpu_torch.models.convert",
     "ray_tpu_torch.train",
     "ray_tpu_torch.train.optim",
@@ -92,8 +94,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from ray_tpu_torch.models.convert import params_from_numpy
     from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
     from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+    from ray_tpu_torch.models.moe import MoEConfig, moe_init
+    from ray_tpu_torch.ops.moe import init_moe_params
     from ray_tpu_torch.scripts.measure import (measure_gpt2, measure_llama,
-                                               measure_serve)
+                                               measure_moe, measure_serve)
     from ray_tpu_torch.serve.llm_engine import LLMEngine
 
     _no_cuda(monkeypatch)
@@ -110,6 +114,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         llama_init(torch.Generator(), LlamaConfig.tiny())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         measure_llama(LlamaConfig.tiny(), 1, steps=1, warmup=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        moe_init(torch.Generator(), MoEConfig.tiny())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_moe_params(torch.Generator(), 8, 16, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        measure_moe(MoEConfig.tiny(), 1, steps=1, warmup=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LLMEngine()
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -102,8 +102,12 @@ def _join(procs, started, logs, name):
         pytest.fail(f"{name}: ranks exited {rcs}\n{tails}")
 
 
-def _jax_steps(jcfg, loss, shardings_fn, init_params, tokens, mesh_kw, n):
+def _jax_steps(jcfg, loss, shardings_fn, init_params, tokens, mesh_kw, n,
+               on_mesh=lambda cfg, mesh: cfg):
+    """JAX's sharded steps on ``n`` devices; ``on_mesh(jcfg, mesh)`` gives
+    the config the model runs with on that mesh."""
     mesh = build_mesh(MeshConfig(**mesh_kw, devices=jax.devices()[:n]))
+    jcfg = on_mesh(jcfg, mesh)
     shardings = shardings_fn(jcfg, mesh)
     state = jmake_init_fn(lambda r: jax.tree.map(jnp.asarray, init_params),
                           shardings, mesh)(jax.random.key(0))
@@ -117,10 +121,12 @@ def _jax_steps(jcfg, loss, shardings_fn, init_params, tokens, mesh_kw, n):
             "params": jax.tree.map(np.asarray, state["params"])}
 
 
-def _jax_save(params, shardings_fn, jcfg, path):
-    """JAX's save_sharded of ``params`` on dp=2 x fsdp=2; returns each
-    shard file's writer (the lowest device id holding the shard)."""
-    mesh = build_mesh(MeshConfig(dp=2, fsdp=2, devices=jax.devices()[:4]))
+def _jax_save(params, shardings_fn, jcfg, path,
+              mesh_kw=MESHES["dp2_fsdp2"]):
+    """JAX's save_sharded of ``params`` on a 4-device mesh (dp=2 x fsdp=2
+    unless ``mesh_kw`` says otherwise); returns each shard file's writer
+    (the lowest device id holding the shard)."""
+    mesh = build_mesh(MeshConfig(**mesh_kw, devices=jax.devices()[:4]))
     shardings = shardings_fn(jcfg, mesh)
     arrays = jax.tree.map(jax.device_put, params, shardings)
     jsave_sharded(arrays, str(path))
