@@ -63,6 +63,29 @@ that fails:
    batch repeated) turns unstable at the seventh on every path, the
    fully plain one included: its seventh loss lands anywhere from 9.9 to
    11.8, above the first, depending on bf16 rounding alone;
+4b. the trainer: ``measure_trainer_gpt2`` runs phase 4's GPT-2 flash run
+   (same config, init and batch, six steps) through
+   ``CudaTrainer(...).fit()`` with ``ScalingConfig(num_workers=1)`` on the
+   local backend, with every kernel counter set to 0 just before it and
+   read just after: the loop attaches ``step_cost`` (FlopCounterMode over
+   one call of the step, on copies of the state), runs each step through
+   ``session.timed_step`` and reports its loss with a checkpoint (a copy
+   of the state) every second step. Held: each of the seven kernels
+   launched exactly as in phase 4, per call of the step (the six steps and
+   step_cost's call); the losses equal phase 4's within rtol 1e-5; the
+   session's MFU gauge within 5% of step_cost's FLOPs over the trainer's
+   own ms/step (the interval between its reports) against the card's
+   peak, and each step's gauge equal to step_cost's FLOPs over the step's
+   host and compute phases against that peak (the ratio of step_cost's
+   FLOPs to the analytic count, and phase 4's MFU on either count,
+   printed, not held: the trainer's step is not phase 4's);
+   step_cost of the kernel path within 1% of the plain path's (dense
+   attention, plain norms) on the same state and batch;
+   ``device_telemetry.snapshot()`` naming the card; and a run that raises
+   before step 3 restarting once from its step-2 checkpoint and giving
+   phase 4's six losses within rtol 1e-5. The trainer's ms/step, tok/s
+   and peak memory are printed beside phase 4's, with the card's name and
+   power limit;
 5. the mesh of 1: a one-rank NCCL group (``parallel.distributed.
    initialize``) and ``build_mesh(MeshConfig(fsdp=-1))``; the GPT-2, Llama
    and MoE main-path steps of phase 4 again, sharded over that mesh through
@@ -116,8 +139,9 @@ that fails:
    ms graph and eager, prefill ms, TTFT p50/p99, peak memory) are
    printed beside the card's name and power limit;
 8. one JSON line of every TPU kernel of the JAX package, all ported, with
-   its launches on its main path and over the mesh of 1 (the flash
-   kernels: GPT-2's, with Llama's and the MoE's beside them);
+   its launches on its main path, over the mesh of 1 and through the
+   trainer (the flash kernels: GPT-2's, with Llama's and the MoE's beside
+   them);
 9. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerances: fused-norm (LayerNorm, RMSNorm, GELU) fp32 outputs within
@@ -796,6 +820,134 @@ def serve_phase(torch, counters, smi):
     return out
 
 
+def trainer_phase(torch, counters, cfg, ref, smi):
+    """Phase 4b: ``measure_trainer_gpt2`` -- phase 4's GPT-2 flash run
+    (``ref``: same config, init and batch) through ``CudaTrainer(...).fit()``
+    with every kernel counter set to 0 just before it and read just after.
+    Holds: each kernel's launches, those of phase 4's steps plus one step
+    for ``step_cost``'s counted call; the losses; the session's MFU gauge
+    against ``step_cost``'s FLOPs over the trainer's own ms/step (the
+    interval between its reports) within 5%, and each step's gauge
+    against those FLOPs over its host and compute phases (phase 4's MFU,
+    on the analytic count and on ``step_cost``'s, is printed beside
+    them, not held: the trainer's step is not phase 4's); the FLOP
+    count of the kernel path against the plain path's (dense attention,
+    plain norms) on the same state and batch; ``device_telemetry``
+    naming the card; and a run that raises before step 3, restarts from
+    its step-2 checkpoint and gives phase 4's losses. Returns the
+    report entry."""
+    from ray_tpu_torch.models.gpt2 import gpt2_init, gpt2_loss
+    from ray_tpu_torch._device import peak_flops_per_chip
+    from ray_tpu_torch.scripts.measure import measure_trainer_gpt2
+    from ray_tpu_torch.train.train_step import make_init_fn, make_train_step
+    from ray_tpu_torch.util import device_telemetry
+    from ray_tpu_torch.util.xla_cost import step_cost
+
+    n_steps = WARMUP + STEPS
+    for c in counters:
+        c.clear()
+    run = measure_trainer_gpt2(cfg, BATCH, steps=n_steps, warmup=WARMUP,
+                               device="cuda")
+    launches = {k: sum(c[k] for c in counters) for k in PORTED}
+    run["launches"] = launches
+    calls = n_steps + 1  # the steps, and step_cost's call of the step
+    gaps = [abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"])]
+    same_flops_mfu = ref["mfu"] * run["flops_ratio"]
+    peak = peak_flops_per_chip(torch.cuda.get_device_name(0))
+    own_clock_mfu = (run["step_cost"]["flops"] / (run["ms_step"] / 1e3)
+                     / peak * 100)
+    run["own_clock_mfu"] = own_clock_mfu
+    mem = run["peak_memory_bytes"] / 2**30
+    print(f"trainer: CudaTrainer(...).fit(), GPT-2 {cfg.n_params / 1e6:.0f}M "
+          f"batch {BATCH} seq {cfg.seq_len}, 1 worker [{smi}]: "
+          f"{run['ms_step']:.2f} ms/step ({run['tok_s']:.1f} tok/s), peak "
+          f"memory {mem:.2f} GiB; measure_gpt2 {ref['ms_step']:.2f} ms/step "
+          f"({ref['tok_s']:.1f} tok/s), peak memory "
+          f"{ref['peak_memory_bytes'] / 2**30:.2f} GiB; gap "
+          f"{run['ms_step'] / ref['ms_step'] - 1:+.2%}; fit {run['wall_s']:.2f}"
+          f" s; losses {[round(x, 4) for x in run['losses']]}, largest "
+          f"relative gap to phase 4 {max(gaps):.3e}")
+    print(f"trainer: step_cost {run['step_cost']['flops'] / 1e12:.4f} TFLOP "
+          f"a step ({run['step_cost']['flops_by_op']}), analytic "
+          f"{run['analytic_flops'] / 1e12:.4f}, ratio {run['flops_ratio']:.4f};"
+          f" MFU gauge {run['mfu_gauge']:.3f}%, step_cost's FLOPs over the "
+          f"trainer's ms/step {own_clock_mfu:.3f}% (ratio "
+          f"{run['mfu_gauge'] / own_clock_mfu:.4f}); measure_gpt2's MFU "
+          f"{ref['mfu']:.3f}% (analytic FLOPs), {same_flops_mfu:.3f}% on "
+          f"step_cost's FLOPs; per step (host, compute, sync s): "
+          f"{[(round(a['host'], 4), round(a['compute'], 4), round(a['sync'], 4)) for a in run['anatomy']]}")
+    print(f"trainer: launches through the trainer {launches} over {calls} "
+          f"calls of the step ({n_steps} steps, 1 in step_cost)")
+    require(all(math.isfinite(x) for x in run["losses"]),
+            f"trainer: non-finite loss {run['losses']}")
+    require(run["steps_run"] == list(range(1, n_steps + 1)),
+            f"trainer: reported steps {run['steps_run']}")
+    require(max(gaps) <= 1e-5, f"trainer: losses off phase 4's by "
+            f"{max(gaps):.3e} (rtol 1e-5)")
+    for k in PORTED:
+        want = ref["launches_per_step"][k] * calls
+        require(launches[k] == want,
+                f"trainer: {k} launched {launches[k]} times, expected {want}")
+    require(abs(run["mfu_gauge"] / own_clock_mfu - 1) <= 0.05,
+            f"trainer: MFU gauge {run['mfu_gauge']:.3f}% vs "
+            f"{own_clock_mfu:.3f}% from step_cost's FLOPs over the "
+            f"trainer's {run['ms_step']:.2f} ms/step (> 5%)")
+    # The gauge's own arithmetic: step_cost's FLOPs over each step's host +
+    # compute phases, against the card's peak.
+    for a in run["anatomy"]:
+        want = run["step_cost"]["flops"] / (a["host"] + a["compute"]) / peak
+        require(abs(a["mfu"] - want * 100) <= 1e-6 * a["mfu"],
+                f"trainer: step {a['step']} MFU gauge {a['mfu']} vs "
+                f"{want * 100} from its phases")
+
+    # The FLOP count of the kernel path against the plain path's.
+    gen = torch.Generator(device="cuda")
+    state = make_init_fn(lambda g: gpt2_init(g, cfg, device="cuda"))(
+        gen.manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, cfg.seq_len + 1),
+                           device="cuda", generator=gen.manual_seed(1))
+    plain = dataclasses.replace(cfg, use_flash=False, fused_norm=False)
+    counts = {}
+    for name, c in (("kernel", cfg), ("plain", plain)):
+        step_fn = make_train_step(lambda p, b, c=c: gpt2_loss(p, b, c))
+        counts[name] = step_cost(step_fn, state, {"tokens": tokens})["flops"]
+    del state
+    rel = abs(counts["kernel"] / counts["plain"] - 1)
+    run["flops_kernel_vs_plain"] = {**counts, "rel": rel}
+    print(f"trainer: step_cost of the kernel path {counts['kernel']:.6e} "
+          f"FLOP, of the plain path {counts['plain']:.6e} (rel {rel:.2e})")
+    require(rel <= 0.01, f"trainer: kernel path counts {counts['kernel']} "
+            f"FLOP, plain path {counts['plain']} (> 1%)")
+
+    snap = device_telemetry.snapshot()
+    run["telemetry"] = snap
+    name = torch.cuda.get_device_name(0)
+    print(f"trainer: device_telemetry.snapshot(): "
+          f"{[(d['device_kind'], d.get('bytes_in_use')) for d in snap['devices']]}")
+    require(snap["available"] and snap["devices"]
+            and snap["devices"][0]["device_kind"] == name,
+            f"trainer: device_telemetry names {snap['devices']}, not {name}")
+
+    rerun = measure_trainer_gpt2(cfg, BATCH, steps=n_steps, warmup=WARMUP,
+                                 fail_at=3, device="cuda")
+    rgaps = [abs(a - b) / abs(b)
+             for a, b in zip(rerun["losses"], ref["losses"])]
+    print(f"trainer: raised before step 3, restarted {rerun['restarts']} "
+          f"time(s) from the step-2 checkpoint: steps {rerun['steps_run']}, "
+          f"losses {[round(x, 4) for x in rerun['losses']]}, largest "
+          f"relative gap to phase 4 {max(rgaps):.3e}; downtime "
+          f"{rerun['goodput']['downtime_s']} s")
+    require(rerun["restarts"] == 1
+            and rerun["steps_run"] == list(range(1, n_steps + 1)),
+            f"trainer restart: {rerun['restarts']} restarts, steps "
+            f"{rerun['steps_run']}")
+    require(max(rgaps) <= 1e-5, f"trainer restart: losses off phase 4's by "
+            f"{max(rgaps):.3e} (rtol 1e-5)")
+    run["restart"] = {k: rerun[k] for k in ("losses", "steps_run",
+                                            "restarts", "goodput")}
+    return run
+
+
 def _bits_equal(torch, a, b) -> bool:
     """Same dtype, shape and bits (a DTensor by its local shard); a Python
     value (the step) by equality."""
@@ -1040,10 +1192,11 @@ def main() -> int:
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import fused_norm as fn
     from ray_tpu_torch.ops.attention import dense_causal_attention
+    from ray_tpu_torch._device import device_spec
     from ray_tpu_torch.scripts.measure import (FUSED_DENSE_FLAGS, FUSED_FLAGS,
                                                LLAMA_FLAGS, MOE_FLAGS,
-                                               device_spec, measure_gpt2,
-                                               measure_llama, measure_moe)
+                                               measure_gpt2, measure_llama,
+                                               measure_moe)
 
     OUT.mkdir(exist_ok=True)
     report = {"nvidia_smi": smi, "device": name}
@@ -1172,6 +1325,9 @@ def main() -> int:
           f"expert of {L_ROWS} a step [{smi}]")
     report["train_step_moe"] = mstep
 
+    # Phase 4b: the trainer, over phase 4's GPT-2 flash run.
+    report["trainer"] = trainer_phase(torch, counters, cfg, step, smi)
+
     # Phase 5: the same steps over a mesh of 1, the sharded checkpoint,
     # and 2 ranks where there are two cards.
     mesh = mesh_phase(torch, counters,
@@ -1228,6 +1384,7 @@ def main() -> int:
             "launches_per_step": main["launches_per_step"][kname],
             "launches_mesh": mesh["llama" if kname in RMS_KERNELS
                                   else "gpt2"]["launches"][kname],
+            "launches_trainer": report["trainer"]["launches"][kname],
             "dtype": "bfloat16",
         }
         if "library_dres_ms" in bf:

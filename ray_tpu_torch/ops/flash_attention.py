@@ -27,7 +27,18 @@ delta are [B, H, T] fp32.
 
 ``flash_causal_attention`` is a ``torch.autograd.Function`` over the
 wrappers, so on the CPU it runs the same plumbing over the plain versions,
-which is what the CPU tests hold against the JAX package.
+which is what the CPU tests hold against the JAX package. It calls them
+as the custom ops ``torch.ops.ray_tpu_torch.flash_fwd`` / ``flash_dkv`` /
+``flash_dq``, each with a FLOP formula registered for
+``torch.utils.flop_counter.FlopCounterMode``: a ctypes launch dispatches
+no torch op, so without them the mode would count no FLOP of attention on
+the GPU, and on the CPU the plain versions' own products. The formulas
+count the attention function's products over all T x T (q, k) pairs, as
+the dense path's matmuls are counted: the forward S = QK^T and O = PV; the
+dK/dV kernel dP = dO V^T, dV = P^T dO and dK = dS^T Q; the dQ kernel
+dQ = dS K. So a step counts the same FLOPs on either attention path. What
+the kernels compute again inside (P in both backward kernels, dP in
+``flash_dq``) and the causal tiles they skip are not in the count.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ray_tpu_torch.ops._build import launch, load_library, on_cpu, stream
 
@@ -251,6 +263,55 @@ def smem_bytes(kernel: str, d: int) -> int:
     return _lib().rt_flash_smem(_SMEM_KERNELS.index(kernel), d)
 
 
+# -- custom ops, for FlopCounterMode ---------------------------------------
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  softmax_scale: float,
+                  causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_fwd(q, k, v, softmax_scale=softmax_scale, causal=causal)
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_dkv", mutates_args=())
+def _flash_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  softmax_scale: float,
+                  causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_dkv(q, k, v, g, lse, delta, softmax_scale=softmax_scale,
+                     causal=causal)
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_dq", mutates_args=())
+def _flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 softmax_scale: float, causal: bool) -> torch.Tensor:
+    return flash_dq(q, k, v, g, lse, delta, softmax_scale=softmax_scale,
+                    causal=causal)
+
+
+def _pair_products(q_shape, k_shape, n: int) -> int:
+    """FLOPs of ``n`` products over every (q, k) pair of [B, T, H, D]
+    operands: 2 * D multiply-adds a pair each."""
+    b, tq, h, d = q_shape
+    return n * 2 * b * h * tq * k_shape[1] * d
+
+
+@register_flop_formula(torch.ops.ray_tpu_torch.flash_fwd)
+def _flash_fwd_flops(q, k, v, *args, out_shape=None, **kwargs) -> int:
+    return _pair_products(q, k, 2)  # S = QK^T, O = PV
+
+
+@register_flop_formula(torch.ops.ray_tpu_torch.flash_dkv)
+def _flash_dkv_flops(q, k, *args, out_shape=None, **kwargs) -> int:
+    return _pair_products(q, k, 3)  # dP = dO V^T, dV = P^T dO, dK = dS^T Q
+
+
+@register_flop_formula(torch.ops.ray_tpu_torch.flash_dq)
+def _flash_dq_flops(q, k, *args, out_shape=None, **kwargs) -> int:
+    return _pair_products(q, k, 1)  # dQ = dS K
+
+
 # -- autograd wiring -------------------------------------------------------
 
 
@@ -260,8 +321,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, softmax_scale, causal):
-        out, lse = flash_fwd(q, k, v, softmax_scale=softmax_scale,
-                             causal=causal)
+        out, lse = _flash_fwd_op(q, k, v, softmax_scale, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.softmax_scale, ctx.causal = softmax_scale, causal
         return out
@@ -271,9 +331,9 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         g = g.contiguous()
         delta = flash_delta(out, g)
-        kw = dict(softmax_scale=ctx.softmax_scale, causal=ctx.causal)
-        dk, dv = flash_dkv(q, k, v, g, lse, delta, **kw)
-        dq = flash_dq(q, k, v, g, lse, delta, **kw)
+        args = (q, k, v, g, lse, delta, ctx.softmax_scale, ctx.causal)
+        dk, dv = _flash_dkv_op(*args)
+        dq = _flash_dq_op(*args)
         return dq, dk, dv, None, None
 
 

@@ -2,8 +2,10 @@
 
 One definition of the timed-step protocol (warmup, a device sync, timed
 steps, tok/s and MFU accounting), shared by ``measure_gpt2``,
-``measure_llama`` and ``measure_moe``, and the per-device peak table that
-MFU is taken against;
+``measure_llama`` and ``measure_moe`` (MFU against ``_device``'s
+per-device peak table); ``measure_trainer_gpt2`` drives ``measure_gpt2``'s
+run through the trainer (``CudaTrainer(...).fit()``) with the session's
+step anatomy, MFU gauge and checkpoints;
 ``measure_serve`` is their serving counterpart, over ``LLMEngine``, and
 ``serve_vs_naive`` holds the engine's greedy tokens against the model's
 full-forward loop, and ``served_vs_fp32`` the engine's logits at its
@@ -19,19 +21,8 @@ import time
 import numpy as np
 import torch
 
-from ray_tpu_torch._device import resolve_device
-
-# Published peaks by substring of torch.cuda.get_device_name(), lowercased,
-# first match wins: dense bf16 tensor-core FLOP/s, fp32 FLOP/s outside the
-# tensor cores, and device-memory bytes/s (NVIDIA's H100 data sheet, at the
-# card's full power limit). "cpu" is nominal, so the harness runs in tests.
-DEVICE_SPECS = {
-    "h100 sxm": {"bf16_flops": 989e12, "fp32_flops": 67e12, "hbm_bytes_s": 3.35e12},
-    "h100 80gb hbm3": {"bf16_flops": 989e12, "fp32_flops": 67e12, "hbm_bytes_s": 3.35e12},
-    "h100 pcie": {"bf16_flops": 756e12, "fp32_flops": 51e12, "hbm_bytes_s": 2.0e12},
-    "cpu": {"bf16_flops": 0.5e12, "fp32_flops": 0.5e12, "hbm_bytes_s": 0.05e12},
-}
-
+from ray_tpu_torch._device import (device_name, peak_flops_per_chip,
+                                   resolve_device)
 
 # bench.py's "fused" GPT-2 config (bench.py:67 and :81): flash attention,
 # fused norms, dots remat, bf16 logits, chunked CE -- the configuration the
@@ -48,28 +39,6 @@ LLAMA_FLAGS = dict(remat="dots", scan_layers=False, use_flash=True,
 # The MoE train step: flash attention under dots remat; its norms are the
 # plain chain, as in the JAX module, so it takes no fused_norm.
 MOE_FLAGS = dict(remat="dots", scan_layers=False, use_flash=True)
-
-
-def device_spec(device_name: str) -> dict[str, float]:
-    """Peak rates of the device named ``device_name``; raises for a device
-    the table does not know rather than guess its peak."""
-    name = device_name.lower()
-    for key, spec in DEVICE_SPECS.items():
-        if key in name:
-            return spec
-    raise ValueError(f"no peak rates known for device {device_name!r}; "
-                     "add it to DEVICE_SPECS")
-
-
-def peak_flops_per_chip(device_name: str) -> float:
-    """Dense bf16 peak FLOP/s of one device (the MFU denominator)."""
-    return device_spec(device_name)["bf16_flops"]
-
-
-def device_name(device: torch.device) -> str:
-    if device.type == "cuda":
-        return torch.cuda.get_device_name(device)
-    return device.type
 
 
 def _sync(device: torch.device) -> None:
@@ -205,6 +174,124 @@ def measure_moe(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
                     cfg.seq_len, moe_flops_per_token(cfg), batch, steps,
                     warmup, device, mesh,
                     moe_shardings(cfg, mesh) if mesh is not None else None)
+
+
+def measure_trainer_gpt2(cfg, batch: int, *, steps: int = 6,
+                         warmup: int = 2, fail_at: int | None = None,
+                         device=None) -> dict:
+    """``measure_gpt2``'s run, ``steps`` steps in all, through the trainer:
+    ``CudaTrainer(loop, ScalingConfig(num_workers=1)).fit()`` on the local
+    backend, the loop on the worker's thread.
+
+    The loop builds the state and the batch as ``_measure`` does (seed 0,
+    seed 1), attaches ``session.set_step_cost(step_cost(step, state,
+    batch))`` (one more call of the step, on copies), then runs each step
+    through ``session.timed_step`` and reports ``{loss, step, t}`` with a
+    ``Checkpoint.from_dict`` of a copy of the state every second step. With ``fail_at`` the first attempt raises
+    before step ``fail_at`` (counted from 1), and the restart resumes from
+    the latest checkpoint (``FailureConfig(max_failures=1)``). After each
+    report the loop reads its rank's MFU and anatomy gauges (live only:
+    ``fit`` retracts them at the end).
+
+    Returns {losses (one a reported step, in report order), steps_run,
+    ms_step (mean interval between the reports of the steps after
+    ``warmup``; each interval holds a step, its device sync, its report
+    and, every second step, the state's copy), tok_s,
+    mfu_gauge (mean of the gauge over those steps), step_cost (flops,
+    flops_by_op, device_kind), analytic_flops (``gpt2_flops_per_token`` x
+    tokens), flops_ratio, anatomy (per step: the gauges' phases and MFU),
+    restarts, goodput, wall_s (the whole ``fit``), device,
+    peak_memory_bytes}."""
+    from ray_tpu_torch._tree import tree_map
+    from ray_tpu_torch.models.gpt2 import (
+        gpt2_flops_per_token,
+        gpt2_init,
+        gpt2_loss,
+    )
+    from ray_tpu_torch.train import session
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+    from ray_tpu_torch.train.config import (FailureConfig, RunConfig,
+                                            ScalingConfig)
+    from ray_tpu_torch.train.train_step import make_init_fn, make_train_step
+    from ray_tpu_torch.train.trainer import CudaTrainer
+    from ray_tpu_torch.util import metrics as _metrics
+    from ray_tpu_torch.util.xla_cost import step_cost
+
+    device = resolve_device(device)
+    costs, anatomy = [], []
+
+    def copy(state):
+        return tree_map(lambda x: x.detach().clone()
+                        if isinstance(x, torch.Tensor) else x, state)
+
+    def loop(config):
+        dev = session.get_device()
+        step_fn = make_train_step(lambda p, b: gpt2_loss(p, b, cfg))
+        ckpt = session.get_checkpoint()
+        if ckpt is None:
+            state = make_init_fn(lambda g: gpt2_init(g, cfg, device=dev))(
+                torch.Generator(device=dev).manual_seed(0))
+        else:
+            state = copy(ckpt.to_dict()["state"])
+        tokens = torch.randint(
+            0, cfg.vocab_size, (batch, cfg.seq_len + 1), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1))
+        batch_data = {"tokens": tokens}
+        cost = step_cost(step_fn, state, batch_data)
+        costs.append(cost)
+        session.set_step_cost(cost)
+        tags = {"node_id": "local", "trial": "train", "rank": "0"}
+        for i in range(state["step"], steps):
+            if fail_at is not None and i + 1 == fail_at and ckpt is None:
+                raise RuntimeError(f"injected failure before step {fail_at}")
+            state, metrics = session.timed_step(step_fn, state, batch_data)
+            done = i + 1
+            keep = (Checkpoint.from_dict({"state": copy(state)})
+                    if done % 2 == 0 else None)
+            session.report({"loss": float(metrics["loss"]), "step": done,
+                            "t": time.perf_counter()}, checkpoint=keep)
+            anatomy.append({
+                "step": done,
+                "mfu": _metrics.TRAIN_MFU_PERCENT.get(tags),
+                **{ph: _metrics.TRAIN_STEP_ANATOMY_SECONDS.get(
+                    {**tags, "phase": ph})
+                   for ph in ("data_wait", "host", "compute", "sync")}})
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    result = CudaTrainer(
+        loop, scaling_config=ScalingConfig(num_workers=1),
+        run_config=RunConfig(failure_config=FailureConfig(
+            max_failures=1 if fail_at is not None else 0)),
+        device=device).fit()
+    wall = time.perf_counter() - t0
+    if result.error is not None:
+        raise RuntimeError("the trainer failed") from result.error
+    hist = result.metrics_history
+    timed = [m["t"] for m in hist if m["step"] >= warmup]
+    dt = (timed[-1] - timed[0]) / (len(timed) - 1)
+    mfus = [a["mfu"] for a in anatomy if a["step"] > warmup]
+    analytic = gpt2_flops_per_token(cfg) * batch * cfg.seq_len
+    cost = costs[0]
+    return {
+        "losses": [m["loss"] for m in hist],
+        "steps_run": [m["step"] for m in hist],
+        "ms_step": dt * 1000,
+        "tok_s": batch * cfg.seq_len / dt,
+        "mfu_gauge": statistics.fmean(mfus),
+        "step_cost": {k: cost[k] for k in ("flops", "flops_by_op",
+                                           "device_kind")},
+        "analytic_flops": analytic,
+        "flops_ratio": cost["flops"] / analytic,
+        "anatomy": anatomy,
+        "restarts": result.goodput["restarts"],
+        "goodput": result.goodput,
+        "wall_s": wall,
+        "device": device_name(device),
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                              if device.type == "cuda" else None),
+    }
 
 
 # The serving engines' settings at full width, by family: 32 slots, a ring

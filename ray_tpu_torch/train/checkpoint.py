@@ -1,5 +1,16 @@
-"""Sharded train-state checkpoints (port of ``save_sharded`` and
-``load_sharded`` in ``ray_tpu/train/checkpoint.py``).
+"""Checkpoints (port of ``ray_tpu/train/checkpoint.py``): the
+``Checkpoint`` artifact, and sharded train-state checkpoints
+(``save_sharded`` / ``load_sharded``).
+
+``Checkpoint`` is one artifact interconvertible between dict, directory
+and object-ref forms (reference: ``python/ray/air/checkpoint.py:60``), so
+the same object flows worker -> trainer -> user. The object-ref form
+lives in the port's object store (``ray_tpu_torch.put``). A dict holds its
+values as given: the port's train step updates its state in place, so a
+loop that checkpoints a live state passes a copy of its tensors, where the
+JAX package's arrays are immutable.
+
+Sharded checkpoints:
 
 Every rank writes only the shards it holds -- one ``.npy`` per unique
 shard, ``leaf_{i}.{starts-stops}.npy``, exactly once across ranks (the
@@ -17,15 +28,16 @@ What differs from the JAX module, and why:
   the JAX package wrote, and the JAX package does not load the port's.
 * numpy has no bfloat16, so a bf16 leaf goes to disk as its ``uint16``
   bits, with ``bfloat16`` named in the manifest.
-* ``Checkpoint`` (dict / directory / object-ref forms) waits for the
-  port's runtime.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any
+import pickle
+import shutil
+import tempfile
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -34,6 +46,93 @@ import torch.distributed as dist
 from ray_tpu_torch._tree import is_dtensor
 
 _MANIFEST = "manifest.json"
+
+
+class Checkpoint:
+    """Exactly one of ``data`` (dict) / ``directory`` / ``ref`` is set."""
+
+    def __init__(self, data: Optional[dict] = None,
+                 directory: Optional[str] = None, ref=None):
+        if sum(x is not None for x in (data, directory, ref)) != 1:
+            raise ValueError("provide exactly one of data/directory/ref")
+        self._data = data
+        self._dir = directory
+        self._ref = ref
+
+    # -- constructors -----------------------------------------------------
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "Checkpoint":
+        return cls(data=dict(data))
+
+    @classmethod
+    def from_directory(cls, path: str) -> "Checkpoint":
+        if not os.path.isdir(path):
+            raise ValueError(f"not a directory: {path}")
+        return cls(directory=path)
+
+    @classmethod
+    def from_object_ref(cls, ref) -> "Checkpoint":
+        return cls(ref=ref)
+
+    # -- conversions ------------------------------------------------------
+
+    def to_dict(self) -> dict:
+        if self._data is not None:
+            return dict(self._data)
+        if self._ref is not None:
+            return Checkpoint._materialize(self._ref).to_dict()
+        out = {}
+        for name in os.listdir(self._dir):
+            p = os.path.join(self._dir, name)
+            if name.endswith(".pkl"):
+                with open(p, "rb") as f:
+                    out[name[:-4]] = pickle.load(f)
+            elif name.endswith(".npy"):
+                out[name[:-4]] = np.load(p, allow_pickle=False)
+        return out
+
+    def to_directory(self, path: Optional[str] = None) -> str:
+        """One ``.npy`` per numpy value, one ``.pkl`` per other value (a
+        tensor pickles with its device)."""
+        path = path or tempfile.mkdtemp(prefix="ray_tpu_torch_ckpt_")
+        os.makedirs(path, exist_ok=True)
+        if self._dir is not None:
+            if os.path.abspath(self._dir) != os.path.abspath(path):
+                shutil.copytree(self._dir, path, dirs_exist_ok=True)
+            return path
+        data = self.to_dict()
+        for k, v in data.items():
+            if isinstance(v, np.ndarray):
+                np.save(os.path.join(path, k + ".npy"), v)
+            else:
+                with open(os.path.join(path, k + ".pkl"), "wb") as f:
+                    pickle.dump(v, f)
+        return path
+
+    def to_object_ref(self):
+        if self._ref is not None:
+            return self._ref
+        import ray_tpu_torch
+
+        return ray_tpu_torch.put(self)
+
+    @staticmethod
+    def _materialize(ref) -> "Checkpoint":
+        import ray_tpu_torch
+
+        value = ray_tpu_torch.get(ref)
+        if isinstance(value, Checkpoint):
+            return value
+        return Checkpoint.from_dict(value)
+
+    def __reduce__(self):
+        # Ship directory checkpoints by value (the dir may be node-local).
+        if self._dir is not None:
+            return (Checkpoint.from_dict, (self.to_dict(),))
+        if self._data is not None:
+            return (Checkpoint.from_dict, (self._data,))
+        return (Checkpoint.from_object_ref, (self._ref,))
 
 
 def _flatten(tree, path=()) -> list:

@@ -1,6 +1,6 @@
 """Counter / Gauge / Histogram, the Prometheus text exposition and its
-parser (the parts of ``ray_tpu/util/metrics.py`` the serving engine and
-its tests call).
+parser (the parts of ``ray_tpu/util/metrics.py`` the serving engine, the
+train session and trainer, and their tests call).
 
 The registry is this process's own: nothing here ships to a cluster's
 ``/metrics`` plane. The metric families keep the JAX package's names, so
@@ -109,6 +109,12 @@ class Gauge(Metric):
         with self._lock:
             self._values[key] = float(value)
 
+    def get(self, tags: Optional[Dict[str, str]] = None) -> Optional[float]:
+        """The series' value, None where it is not set."""
+        key = self._key(tags)
+        with self._lock:
+            return self._values.get(key)
+
 
 class Histogram(Metric):
     metric_type = "histogram"
@@ -197,6 +203,39 @@ TRAIN_STEP_ANATOMY_SECONDS = Gauge(
     "(dispatch until device launch) / compute (synced device wall) / "
     "sync (barrier skew)",
     tag_keys=("node_id", "trial", "phase", "rank"),
+)
+TRAIN_STEP_PHASE_SECONDS = Histogram(
+    "ray_tpu_train_step_phase_seconds",
+    "Wall time of one training-step phase per reported step (data_wait "
+    "/ step / report / checkpoint_save / checkpoint_restore), driven "
+    "from the session API",
+    boundaries=[0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.25,
+                0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 120.0],
+    tag_keys=("node_id", "trial", "phase"),
+)
+TRAIN_RANK_STEP_SECONDS = Gauge(
+    "ray_tpu_train_rank_step_seconds",
+    "Most recent step compute seconds per rank of a gang (the "
+    "straggler gauge); retracted when the trial stops",
+    tag_keys=("node_id", "trial", "rank"),
+)
+TRAIN_REPORTS_TOTAL = Counter(
+    "ray_tpu_train_reports_total",
+    "session.report calls per trial (all ranks)",
+    tag_keys=("node_id", "trial"),
+)
+TRAIN_DOWNTIME_SECONDS = Counter(
+    "ray_tpu_train_downtime_seconds_total",
+    "Non-productive trial wall seconds attributed by the trainer's "
+    "downtime ledger (cause: preemption / failure)",
+    tag_keys=("node_id", "trial", "cause"),
+)
+TRAIN_MFU_PERCENT = Gauge(
+    "ray_tpu_mfu_percent",
+    "Model-FLOPs utilization per rank: FlopCounterMode FLOPs per step "
+    "(util/xla_cost) over the synced step wall, against the measure.py "
+    "per-device peak; retracted when the trial stops",
+    tag_keys=("node_id", "trial", "rank"),
 )
 TRACING_DROPPED_SPANS = Counter(
     "ray_tpu_tracing_dropped_spans_total",

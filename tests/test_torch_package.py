@@ -27,6 +27,18 @@ SLICE_MODULES = [
     "ray_tpu_torch",
     "ray_tpu_torch._device",
     "ray_tpu_torch._tree",
+    "ray_tpu_torch._private",
+    "ray_tpu_torch._private.options",
+    "ray_tpu_torch._private.worker",
+    "ray_tpu_torch.api",
+    "ray_tpu_torch.actor",
+    "ray_tpu_torch.remote_function",
+    "ray_tpu_torch.core",
+    "ray_tpu_torch.core.cancellation",
+    "ray_tpu_torch.core.ids",
+    "ray_tpu_torch.core.local_backend",
+    "ray_tpu_torch.core.object_ref",
+    "ray_tpu_torch.core.resources",
     "ray_tpu_torch.ops",
     "ray_tpu_torch.ops._build",
     "ray_tpu_torch.ops.attention",
@@ -43,6 +55,9 @@ SLICE_MODULES = [
     "ray_tpu_torch.train.optim",
     "ray_tpu_torch.train.train_step",
     "ray_tpu_torch.train.checkpoint",
+    "ray_tpu_torch.train.config",
+    "ray_tpu_torch.train.session",
+    "ray_tpu_torch.train.trainer",
     "ray_tpu_torch.parallel",
     "ray_tpu_torch.parallel.mesh",
     "ray_tpu_torch.parallel.distributed",
@@ -56,6 +71,11 @@ SLICE_MODULES = [
     "ray_tpu_torch.util.tracing",
     "ray_tpu_torch.util.failpoints",
     "ray_tpu_torch.util.goodput",
+    "ray_tpu_torch.util.device_telemetry",
+    "ray_tpu_torch.util.placement_group",
+    "ray_tpu_torch.util.queue",
+    "ray_tpu_torch.util.scheduling_strategies",
+    "ray_tpu_torch.util.xla_cost",
     "ray_tpu_torch.serve",
     "ray_tpu_torch.serve._observability",
     "ray_tpu_torch.serve.llm_engine",
@@ -166,7 +186,7 @@ def test_wrappers_reject_other_devices():
 
 
 def test_peak_table_refuses_unknown_cards():
-    from ray_tpu_torch.scripts.measure import peak_flops_per_chip
+    from ray_tpu_torch._device import peak_flops_per_chip
 
     assert peak_flops_per_chip("NVIDIA H100 80GB HBM3") == 989e12
     assert peak_flops_per_chip("NVIDIA H100 PCIe") == 756e12
