@@ -42,6 +42,20 @@ that fails:
      dK/dV + dQ pair;
    - dense against flash attention, forward plus backward, at T = 512,
      1024 and 2048 (B*H = 96, D = 64), timed only;
+3b. ring attention on the flash kernels, in one process (``FoldedRing``:
+   all sp positions of a ring on the card, the rank axis folded into the
+   batch), at GPT-2 small's attention shape (B=8, T=1024, H=12, D=64, q/k/v
+   strided views of one qkv tensor) and Llama small's (B=4, T=2048, H=16,
+   D=64), each at sp = 2 and 4, bf16, with every kernel counter set to 0
+   just before and read just after: flash_fwd (once causal, sp - 1 times
+   full), flash_dkv and flash_dq (with the masking lse +1e30 on the
+   blocks ahead) launched sp times each; out, dq, dk, dv and the lse
+   against the same ring on the plain versions (phase 3's rules) and the
+   loss (``mean(out ** 2)``) and gradient against one
+   ``flash_causal_attention`` over the whole T (rtol 1e-2, cosine >
+   0.999); the ring's forward plus backward device ms printed beside the
+   one flash call's (a flash call of the folded ring holds sp times a
+   rank's batch, so these are not per-rank times);
 4. the train steps, each with every kernel counter set to 0 just before
    it and its launches read just after: the loss finite and falling, and
    every kernel launched exactly the expected number of times per step:
@@ -99,12 +113,21 @@ that fails:
    launches of every kernel; ms/step, tok/s and peak memory beside phase
    4's; then ``save_sharded`` of the GPT-2 state after one step and
    ``load_sharded`` onto the same mesh, every leaf bit for bit (bytes and
-   seconds printed); then, where there are two CUDA devices, 2 NCCL ranks
+   seconds printed); the GPT-2 and Llama main-path steps again with
+   ``attention_impl="ring"`` over the mesh of 1 (a ring of one is the
+   causal flash call): losses and launches equal to phase 4's exactly;
+   then, where there are two CUDA devices, 2 NCCL ranks
    of GPT-2 small at fsdp=2 and 2 of the MoE at ep=2 (each rank the whole
    batch, its 4 experts, the tokens exchanged by all_to_all; this script
    with ``--mesh-rank``): the first loss within rtol 1e-4 of the mesh of 1
-   and the rest within 1e-2 -- with one device a line says the 2-rank runs
-   did not run;
+   and the rest within 1e-2; and 2 NCCL ranks at sp=2 (each rank the
+   whole batch and half the positions) of GPT-2 small with ring
+   attention, Llama small with ring attention and Llama small with
+   Ulysses (dense attention over all_to_all): the same tolerances against
+   phase 4's unsharded losses, and each rank's launches a step
+   (``TWO_RANK_LAUNCHES``); ms/step, tok/s, peak memory and the card's
+   name and power limit printed per rank -- with one device a line says
+   each 2-rank run did not run;
 5b. the cluster trainer: a ``Cluster`` of one node advertising the
    cards (``num_gpus`` = the device count), with the card's caching
    allocator emptied first (the free memory printed), and
@@ -158,9 +181,10 @@ that fails:
    ms graph and eager, prefill ms, TTFT p50/p99, peak memory) are
    printed beside the card's name and power limit;
 8. one JSON line of every TPU kernel of the JAX package, all ported, with
-   its launches on its main path, over the mesh of 1, through the trainer
-   and through the cluster trainer's worker process (the flash kernels:
-   GPT-2's, with Llama's and the MoE's beside them);
+   its launches on its main path, over the mesh of 1, with the ring of
+   one, through the trainer and through the cluster trainer's worker
+   process (the flash kernels: GPT-2's, with Llama's and the MoE's beside
+   them, and their launches and ms in phase 3b's rings);
 9. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerances: fused-norm (LayerNorm, RMSNorm, GELU) fp32 outputs within
@@ -184,6 +208,9 @@ go to ``chip_smoke_out/chip_smoke.json``.
 ``python3 chip_smoke.py --two-workers`` runs phase 5b's two-worker run
 alone, with what it is held against (phase 4's GPT-2 run, the mesh of 1,
 phase 5's 2 ranks), on a machine with two or more cards.
+``python3 chip_smoke.py --sp-ranks`` runs phase 5's three sp=2 two-rank
+runs alone, with phase 4's GPT-2 and Llama runs they are held against,
+on a machine with two or more cards.
 
 Exits non-zero, printing no result, when CUDA is not available or when the
 ``ray_tpu_torch`` package is not beside this file.
@@ -203,8 +230,8 @@ from pathlib import Path
 
 from ray_tpu_torch.scripts.flash_bench import (bf16_within_ulp, cosine,
                                                device_ms, flash_inputs,
-                                               host_us, ptxas_report,
-                                               warm_clocks)
+                                               host_us, plain_flash,
+                                               ptxas_report, warm_clocks)
 
 OUT = Path(__file__).resolve().parent / "chip_smoke_out"
 SOURCES = {"fused_norm": "ray_tpu_torch/ops/csrc/fused_norm.cu",
@@ -278,6 +305,13 @@ GELU_ODD_LENGTHS = (100, 1001, 8199, 3 * 8192 * 4 + 5)
 # 32-row block; 769 is not readable 16 bytes at a time, 1025 too wide.
 LN_WARP_WIDTHS = ((37, 768), (45, 768), (37, 769), (64, 1024), (64, 1025))
 CROSSOVER_SEQS = (512, 1024, 2048)
+# Phase 3b, the single-process ring at the main paths' attention shapes:
+# (label, B, T, H, q/k/v strided views of one qkv tensor), at each sp. A
+# ring call launches flash_fwd sp times (once causal), flash_dkv and
+# flash_dq sp times each.
+RING_CASES = (("GPT-2", BATCH, SEQ, N_HEAD, True),
+              ("Llama", L_BATCH, L_SEQ, L_N_HEAD, False))
+RING_SPS = (2, 4)
 # The serving phase: requests per engine and new tokens a request; the
 # fp32 check's prompts and tokens.
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 64, 64
@@ -625,6 +659,108 @@ def time_crossover(torch, fa, dense, flush):
         print(f"attention fwd+bwd at T={t} (B*H=96, D=64, bf16): dense "
               f"{row['dense_ms']:.3f} ms, flash {row['flash_ms']:.3f} ms")
     return rows
+
+
+# -- phase 3b ------------------------------------------------------------------
+
+
+def _fold(torch, ra, xs, sp, packed):
+    """q, k, v in the folded ring's layout; packed inputs stay strided
+    views of one [sp * B, C, 3 * H * D] tensor, as each rank's qkv."""
+    b, t, h, d = xs[0].shape
+    if not packed:
+        return [ra.fold_sequence(x, sp) for x in xs]
+    qkv = ra.fold_sequence(torch.cat([x.reshape(b, t, h * d) for x in xs],
+                                     -1), sp)
+    return [x.reshape(sp * b, t // sp, h, d) for x in qkv.split(h * d, -1)]
+
+
+def ring_phase(torch, fa, ra, counters, flush, smi):
+    """Phase 3b: the single-process ring (``FoldedRing``, all ``sp``
+    positions of a ring on one card) on the flash kernels at each of
+    ``RING_CASES`` and ``RING_SPS``, bf16. The loss is ``mean(out ** 2)``
+    and the gradients are of it. Held, with every kernel counter set to 0
+    just before the ring's forward and backward and read just after:
+    ``flash_fwd``, ``flash_dkv`` and ``flash_dq`` launched sp times each
+    (``RING_LAUNCHES``); out, dq, dk and dv by cosine > 0.9999 and the
+    global lse within 1e-4 * max(1, |lse|) of the same ring on the plain
+    versions (phase 3's rules); and against one ``flash_causal_attention``
+    over the whole T: the loss within rtol 1e-2, the whole gradient by
+    cosine > 0.999. Prints the fwd+bwd device ms of the ring beside the
+    one flash call's."""
+    out = []
+    for label, b, t, h, packed in RING_CASES:
+        q, k, v, do = flash_inputs(b, t, h, 64, t + h, packed)
+        for sp in RING_SPS:
+            ring = ra.FoldedRing(sp)
+            leaves = [x.detach().requires_grad_(True)
+                      for x in _fold(torch, ra, (q, k, v), sp, packed)]
+            do_f = ra.fold_sequence(do, sp)
+
+            def ring_grads():
+                o = ra.ring_flash_attention_local(*leaves, ring=ring)
+                loss = o.float().pow(2).mean()
+                return [loss.detach(), o.detach(),
+                        *torch.autograd.grad(loss, leaves)]
+
+            for c in counters:
+                c.clear()
+            got = ring_grads()
+            torch.cuda.synchronize()
+            launches = {k: sum(c[k] for c in counters) for k in FLASH_KERNELS}
+            with plain_flash(fa):
+                want = ring_grads()
+                with torch.no_grad():
+                    _, lse_p = ra._ring_flash_fwd(*leaves, ring, 64 ** -0.5)
+            with torch.no_grad():
+                _, lse_k = ra._ring_flash_fwd(*leaves, ring, 64 ** -0.5)
+            full = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            o_full = fa.flash_causal_attention(*full)
+            loss_full = o_full.float().pow(2).mean()
+            g_full = torch.autograd.grad(loss_full, full)
+            g_ring = [ra.unfold_sequence(g, sp) for g in got[2:]]
+            torch.cuda.synchronize()
+            tag = f"{label} [B={b} T={t} H={h} D=64] sp={sp}"
+            cos = {n: cosine(a, w) for n, a, w in zip(
+                ("out", "dq", "dk", "dv"), got[1:], want[1:])}
+            lse_err = float((lse_k - lse_p).abs().max())
+            lse_tol = 1e-4 * max(1.0, float(lse_p.abs().max()))
+            loss_rel = abs(float(got[0]) - float(loss_full)) / float(loss_full)
+            cos_full = cosine(torch.cat([g.flatten() for g in g_ring]),
+                              torch.cat([g.flatten() for g in g_full]))
+            ms = device_ms(lambda: torch.autograd.grad(
+                ra.ring_flash_attention_local(*leaves, ring=ring), leaves,
+                do_f), flush, n=10)
+            ms_full = device_ms(lambda: torch.autograd.grad(
+                fa.flash_causal_attention(*full), full, do), flush, n=10)
+            row = {"case": label, "b": b, "t": t, "h": h, "sp": sp,
+                   "launches": launches, "cosine_vs_plain": cos,
+                   "lse_err": lse_err, "loss": float(got[0]),
+                   "loss_flash_over_t": float(loss_full),
+                   "loss_rel_diff": loss_rel, "grad_cosine_vs_flash": cos_full,
+                   "ring_ms": ms, "flash_over_t_ms": ms_full}
+            out.append(row)
+            print(f"ring {tag} [{smi}]: launches {launches}; vs the plain "
+                  f"ring: cosine {', '.join(f'{n} {c:.6f}' for n, c in cos.items())}"
+                  f", lse err {lse_err:.2e}; vs one flash call over T: loss "
+                  f"{float(got[0]):.6f} vs {float(loss_full):.6f} (rel "
+                  f"{loss_rel:.2e}), gradient cosine {cos_full:.6f}; fwd+bwd "
+                  f"ring {ms:.3f} ms (one process, sp x the batch a flash "
+                  f"call), one flash call over T {ms_full:.3f} ms")
+            require(launches == {k: sp for k in FLASH_KERNELS},
+                    f"ring {tag}: launches {launches}, expected {sp} each")
+            require(all(bool(torch.isfinite(x).all()) for x in got[1:]),
+                    f"ring {tag}: non-finite output or gradient")
+            require(all(c > 0.9999 for c in cos.values()),
+                    f"ring {tag}: cosine to the plain ring {cos}")
+            require(lse_err <= lse_tol, f"ring {tag}: lse err {lse_err:.3e} > "
+                    f"{lse_tol:.3e}")
+            require(loss_rel <= 1e-2, f"ring {tag}: loss off one flash call "
+                    f"over T by {loss_rel:.3e}")
+            require(cos_full > 0.999, f"ring {tag}: gradient cosine to one "
+                    f"flash call over T {cos_full:.6f}")
+            del leaves, full, got, want
+    return out
 
 
 def run_step(torch, counters, label, measure, cfg, batch, warmup, steps,
@@ -1207,26 +1343,78 @@ def mesh_phase(torch, counters, unsharded, smi):
                         if ref["launches"][k]),
                     f"mesh {key}: a kernel of the path did not launch")
             out[key] = r
+        for key, label, measure, cfg, batch in (
+                ("gpt2", "GPT-2", measure_gpt2, GPT2Config(**FUSED_FLAGS),
+                 BATCH),
+                ("llama", "Llama", measure_llama, LlamaConfig(**LLAMA_FLAGS),
+                 L_BATCH)):
+            out[f"{key}_ring"] = ring_of_one(
+                torch, counters, label, measure,
+                dataclasses.replace(cfg, attention_impl="ring"), batch, mesh,
+                unsharded[key], smi)
         out["checkpoint"] = checkpoint_round_trip(
             torch, mesh, GPT2Config(**FUSED_FLAGS), smi)
     finally:
         distributed.shutdown()
     out["two_ranks"] = two_rank_phase(torch, out["gpt2"], smi, "gpt2")
     out["two_ranks_moe"] = two_rank_phase(torch, out["moe"], smi, "moe")
+    for model, ref in (("gpt2_ring", "gpt2"), ("llama_ring", "llama"),
+                       ("llama_ulysses", "llama")):
+        out[f"two_ranks_{model}"] = two_rank_phase(
+            torch, unsharded[ref], smi, model)
     return out
+
+
+def ring_of_one(torch, counters, label, measure, cfg, batch, mesh, ref, smi):
+    """A main-path step with ``attention_impl="ring"`` over the mesh of 1,
+    every kernel counter set to 0 just before and read just after: a ring
+    of one is the causal flash call, so the losses and the launches of
+    every kernel must be phase 4's (``ref``) exactly."""
+    for c in counters:
+        c.clear()
+    r = measure(cfg, batch, steps=STEPS, warmup=WARMUP, device="cuda",
+                mesh=mesh)
+    r["launches"] = {k: sum(c[k] for c in counters) for k in PORTED}
+    print(f"mesh of 1, {label} with attention_impl='ring' [{smi}]: "
+          f"{r['ms_step']:.2f} ms/step, {r['tok_s']:.1f} tok/s, peak memory "
+          f"{r['peak_memory_bytes'] / 2**30:.3f} GiB; losses "
+          f"{[round(x, 6) for x in r['losses']]}, phase 4's "
+          f"{[round(x, 6) for x in ref['losses']]}; launches {r['launches']}")
+    require(r["losses"] == ref["losses"], f"ring of one, {label}: losses "
+            f"{r['losses']}, phase 4's {ref['losses']}")
+    require(r["launches"] == ref["launches"], f"ring of one, {label}: "
+            f"launches {r['launches']}, phase 4's {ref['launches']}")
+    return r
 
 
 # The 2-rank runs: (mesh axis over the two ranks, global batch, label).
 TWO_RANK_RUNS = {"gpt2": ("fsdp", BATCH, "GPT-2 small"),
-                 "moe": ("ep", L_BATCH, "MoE small")}
+                 "moe": ("ep", L_BATCH, "MoE small"),
+                 "gpt2_ring": ("sp", BATCH, "GPT-2 small, ring attention"),
+                 "llama_ring": ("sp", L_BATCH, "Llama small, ring attention"),
+                 "llama_ulysses": ("sp", L_BATCH, "Llama small, Ulysses")}
+# Launches a step on each rank of the sp=2 runs: the ring calls each flash
+# kernel twice where the flash path calls it once; Ulysses' attention is
+# the dense path, as in the JAX package.
+TWO_RANK_LAUNCHES = {
+    "gpt2_ring": dict(EXPECTED_PER_STEP, flash_fwd=48, flash_dkv=24,
+                      flash_dq=24),
+    "llama_ring": dict(EXPECTED_LLAMA, flash_fwd=64, flash_dkv=32,
+                       flash_dq=32),
+    "llama_ulysses": dict(EXPECTED_LLAMA, flash_fwd=0, flash_dkv=0,
+                          flash_dq=0)}
 
 
 def two_rank_phase(torch, one_rank, smi, model):
     """``model`` on 2 NCCL ranks (this script with ``--mesh-rank``), where
-    there are two cards: GPT-2 small at fsdp=2, or the MoE at ep=2 (each
-    rank routes the whole batch and computes its 4 experts). The first
-    loss within rtol 1e-4 of the mesh of 1, the later ones within the bf16
-    rule (rtol 1e-2). Otherwise one line saying why it did not run."""
+    there are two cards: GPT-2 small at fsdp=2, the MoE at ep=2 (each rank
+    routes the whole batch and computes its 4 experts), or GPT-2 / Llama
+    small at sp=2 (each rank the whole batch and its half of the
+    positions). The first loss within rtol 1e-4 of ``one_rank`` (the mesh
+    of 1, or phase 4's unsharded run for sp), the later ones within the
+    bf16 rule (rtol 1e-2); for sp, each rank's launches a step
+    (``TWO_RANK_LAUNCHES``). Otherwise one line saying why it did not
+    run."""
     axis, batch, label = TWO_RANK_RUNS[model]
     n = torch.cuda.device_count()
     if n < 2:
@@ -1236,7 +1424,8 @@ def two_rank_phase(torch, one_rank, smi, model):
     from ray_tpu_torch.parallel.distributed import free_port
 
     result = OUT / f"mesh2_{model}.json"
-    result.unlink(missing_ok=True)
+    for r in range(2):
+        result.with_suffix(f".rank{r}.json").unlink(missing_ok=True)
     address = f"127.0.0.1:{free_port()}"
     procs = [subprocess.Popen([sys.executable, __file__, "--mesh-rank",
                                str(r), "2", address, str(result), model])
@@ -1249,51 +1438,88 @@ def two_rank_phase(torch, one_rank, smi, model):
                 p.kill()
                 p.wait()
     require(rcs == [0, 0], f"mesh of 2 ({model}): ranks exited {rcs}")
-    r = json.loads(result.read_text())
+    ranks = [json.loads(result.with_suffix(f".rank{r}.json").read_text())
+             for r in range(2)]
+    r = ranks[0]
     gaps = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
                                                 one_rank["losses"])]
-    print(f"mesh of 2 ({axis}=2), {label} batch {batch} [{smi}]: "
-          f"{r['ms_step']:.2f} ms/step, {r['tok_s']:.1f} tok/s, MFU "
-          f"{r['mfu']:.2f}%, rank 0 peak memory "
-          f"{r['peak_memory_bytes'] / 2**30:.3f} GiB; losses "
-          f"{[round(x, 4) for x in r['losses']]}, relative gaps to the mesh "
-          f"of 1 {[f'{g:.2e}' for g in gaps]}")
+    against = "phase 4" if axis == "sp" else "the mesh of 1"
+    for i, rank in enumerate(ranks):
+        print(f"mesh of 2 ({axis}=2), {label} batch {batch}, rank {i} "
+              f"[{rank['smi']}]: {rank['ms_step']:.2f} ms/step, "
+              f"{rank['tok_s']:.1f} tok/s, MFU {rank['mfu']:.2f}%, peak "
+              f"memory {rank['peak_memory_bytes'] / 2**30:.3f} GiB; "
+              f"launches a step {rank['launches_per_step']}")
+    print(f"mesh of 2 ({axis}=2), {label}: losses "
+          f"{[round(x, 4) for x in r['losses']]}, relative gaps to {against} "
+          f"{[f'{g:.2e}' for g in gaps]}")
     require(gaps[0] <= 1e-4, f"mesh of 2 ({model}): first loss off by "
             f"{gaps[0]:.3e}")
     require(max(gaps) <= 1e-2, f"mesh of 2 ({model}): losses off by "
             f"{max(gaps):.3e}")
-    return {"ran": True, **r, "loss_rel_gaps": gaps}
+    if model in TWO_RANK_LAUNCHES:
+        for i, rank in enumerate(ranks):
+            require(rank["launches_per_step"] == TWO_RANK_LAUNCHES[model],
+                    f"mesh of 2 ({model}): rank {i} launches a step "
+                    f"{rank['launches_per_step']}, expected "
+                    f"{TWO_RANK_LAUNCHES[model]}")
+    return {"ran": True, **r, "ranks": ranks, "loss_rel_gaps": gaps}
 
 
 def mesh_rank_main(rank: int, world: int, address: str, result: str,
                    model: str) -> int:
-    """One NCCL rank of ``two_rank_phase``; rank 0 writes the result."""
+    """One NCCL rank of ``two_rank_phase``; each rank writes its result,
+    with its launches (the counters zeroed just before the run) and its
+    card's name and power limit, beside ``result``."""
     import torch
 
     from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.models.llama import LlamaConfig
     from ray_tpu_torch.models.moe import MoEConfig
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import fused_norm as fn
     from ray_tpu_torch.parallel import distributed
     from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
-    from ray_tpu_torch.scripts.measure import (FUSED_FLAGS, MOE_FLAGS,
-                                               measure_gpt2, measure_moe)
+    from ray_tpu_torch.scripts.measure import (FUSED_FLAGS, LLAMA_FLAGS,
+                                               MOE_FLAGS, measure_gpt2,
+                                               measure_llama, measure_moe)
 
+    runs = {
+        "gpt2": (measure_gpt2, GPT2Config(**FUSED_FLAGS), MeshConfig(
+            fsdp=world)),
+        "moe": (measure_moe, MoEConfig(**MOE_FLAGS, expert_parallel=True),
+                MeshConfig(fsdp=1, ep=world)),
+        "gpt2_ring": (measure_gpt2, GPT2Config(
+            **FUSED_FLAGS, attention_impl="ring"), MeshConfig(fsdp=1,
+                                                              sp=world)),
+        "llama_ring": (measure_llama, LlamaConfig(
+            **LLAMA_FLAGS, attention_impl="ring"), MeshConfig(fsdp=1,
+                                                              sp=world)),
+        "llama_ulysses": (measure_llama, LlamaConfig(
+            **LLAMA_FLAGS, attention_impl="ulysses"), MeshConfig(fsdp=1,
+                                                                 sp=world)),
+    }
+    measure, cfg, mesh_cfg = runs[model]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     distributed.initialize("chip-smoke-2", rank, world,
                            coordinator_address=address)
     try:
-        if model == "gpt2":
-            r = measure_gpt2(GPT2Config(**FUSED_FLAGS), BATCH, steps=STEPS,
-                             warmup=WARMUP,
-                             mesh=build_mesh(MeshConfig(fsdp=world)))
-        else:
-            r = measure_moe(MoEConfig(**MOE_FLAGS, expert_parallel=True),
-                            L_BATCH, steps=STEPS, warmup=WARMUP,
-                            mesh=build_mesh(MeshConfig(fsdp=1, ep=world)))
+        counters = (fn.KERNEL_INVOCATIONS, fa.KERNEL_INVOCATIONS)
+        for c in counters:
+            c.clear()
+        r = measure(cfg, TWO_RANK_RUNS[model][1], steps=STEPS, warmup=WARMUP,
+                    mesh=build_mesh(mesh_cfg))
+        n_steps = r["warmup"] + STEPS
+        r["launches_per_step"] = {k: sum(c[k] for c in counters) / n_steps
+                                  for k in PORTED}
     finally:
         distributed.shutdown()
-    if rank == 0:
-        Path(result).write_text(json.dumps(r))
+    r["smi"] = subprocess.run(
+        ["nvidia-smi", "-i", str(torch.cuda.current_device()),
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    Path(result).with_suffix(f".rank{rank}.json").write_text(json.dumps(r))
     return 0
 
 
@@ -1327,6 +1553,7 @@ def main() -> int:
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import fused_norm as fn
+    from ray_tpu_torch.ops import ring_attention as ra
     from ray_tpu_torch.ops.attention import dense_causal_attention
     from ray_tpu_torch._device import device_spec
     from ray_tpu_torch.scripts.measure import (FUSED_DENSE_FLAGS, FUSED_FLAGS,
@@ -1437,9 +1664,12 @@ def main() -> int:
                   f"launches_per_step={per_step} [bf16, {shape}]")
     require(not failures, "kernel vs plain: " + "; ".join(failures))
 
+    # Phase 3b: the ring on the flash kernels, one process.
+    counters = (fn.KERNEL_INVOCATIONS, fa.KERNEL_INVOCATIONS)
+    report["ring"] = ring_phase(torch, fa, ra, counters, flush, smi)
+
     # Phase 4: the train steps -- GPT-2's main path (flash) first, then
     # GPT-2 with dense attention, then Llama's main path, then the MoE's.
-    counters = (fn.KERNEL_INVOCATIONS, fa.KERNEL_INVOCATIONS)
     cfg = GPT2Config(**FUSED_FLAGS)
     step = run_step(torch, counters, "GPT-2", measure_gpt2, cfg, BATCH,
                     WARMUP, STEPS, EXPECTED_PER_STEP)
@@ -1527,6 +1757,9 @@ def main() -> int:
             "launches_trainer": report["trainer"]["launches"][kname],
             "launches_cluster": report["cluster_trainer"]["launches"].get(
                 kname, 0),
+            "launches_ring_of_one": mesh[("llama" if kname in RMS_KERNELS
+                                          else "gpt2") + "_ring"][
+                                              "launches"][kname],
             "dtype": "bfloat16",
         }
         if "library_dres_ms" in bf:
@@ -1541,6 +1774,11 @@ def main() -> int:
                 **{k: report["flash_llama_shape"][kname][k] for k in
                    ("max_abs_err", "ms", "host_us", "plain_ms", "library_ms",
                     "bound_ms")}}
+            entry["ring"] = {
+                f"{r['case']} sp={r['sp']}": {
+                    "launches": r["launches"][kname], "ms": r["ring_ms"],
+                    "flash_over_t_ms": r["flash_over_t_ms"]}
+                for r in report["ring"]}
             entry["moe"] = {
                 "launches": mstep["launches"][kname],
                 "launches_mesh": mesh["moe"]["launches"][kname],
@@ -1606,10 +1844,50 @@ def two_workers_main() -> int:
     return 0
 
 
+def sp_ranks_main() -> int:
+    """``--sp-ranks``: phase 5's sp=2 two-rank runs (GPT-2 ring, Llama
+    ring, Llama Ulysses) alone, after phase 4's GPT-2 and Llama runs they
+    are held against, for a machine with two or more cards."""
+    import torch
+
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import fused_norm as fn
+    from ray_tpu_torch.scripts.measure import (FUSED_FLAGS, LLAMA_FLAGS,
+                                               measure_gpt2, measure_llama)
+
+    require(torch.cuda.device_count() >= 2,
+            f"--sp-ranks needs two CUDA devices, found "
+            f"{torch.cuda.device_count()}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    OUT.mkdir(exist_ok=True)
+    _build.build(list(SOURCES))
+    counters = (fn.KERNEL_INVOCATIONS, fa.KERNEL_INVOCATIONS)
+    ref = {"gpt2": run_step(torch, counters, "GPT-2", measure_gpt2,
+                            GPT2Config(**FUSED_FLAGS), BATCH, WARMUP, STEPS,
+                            EXPECTED_PER_STEP),
+           "llama": run_step(torch, counters, "Llama", measure_llama,
+                             LlamaConfig(**LLAMA_FLAGS), L_BATCH, WARMUP,
+                             STEPS, EXPECTED_LLAMA)}
+    for model in ("gpt2_ring", "llama_ring", "llama_ulysses"):
+        two_rank_phase(torch, ref[model.split("_")[0]], smi, model)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                                 sys.argv[4], sys.argv[5], sys.argv[6]))
     if sys.argv[1:2] == ["--two-workers"]:
         sys.exit(two_workers_main())
+    if sys.argv[1:2] == ["--sp-ranks"]:
+        sys.exit(sp_ranks_main())
     sys.exit(main())

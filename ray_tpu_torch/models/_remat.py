@@ -1,5 +1,6 @@
 """Per-block rematerialisation shared by the models (the counterpart of the
-``jax.checkpoint`` wrapping in ``ray_tpu/models/gpt2.py`` and ``llama.py``).
+``jax.checkpoint`` wrapping in ``ray_tpu/models/gpt2.py`` and ``llama.py``),
+and the attention dispatch GPT-2 and Llama share.
 
 ``remat`` maps onto ``torch.utils.checkpoint`` around one block: ``True``
 saves nothing inside the block, ``"dots"`` saves only ``aten.mm`` /
@@ -21,6 +22,9 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch._tree import tree_map
+from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.ops.ring_attention import ring_causal_attention
+from ray_tpu_torch.ops.ulysses import ulysses_attention
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -57,7 +61,34 @@ def run_layers(block_fn: Callable, carry, blocks: dict, n_layer: int):
     return carry
 
 
-def check_attention_impl(impl: str) -> None:
-    if impl != "auto":
-        raise NotImplementedError(
-            f"attention_impl={impl!r} is ported in a later slice; use 'auto'")
+def attention(q, k, v, cfg):
+    """The models' attention, dispatched as the JAX models do: ``"ring"``
+    over ``cfg.mesh`` runs ring attention, ``"ulysses"`` over it the head
+    scatter, both over the mesh's ``sp`` axis; anything else, ``"ring"``
+    and ``"ulysses"`` without a mesh included, ``causal_attention``."""
+    if cfg.attention_impl == "ring" and cfg.mesh is not None:
+        return ring_causal_attention(q, k, v, cfg.mesh, axis="sp")
+    if cfg.attention_impl == "ulysses" and cfg.mesh is not None:
+        return ulysses_attention(q, k, v, cfg.mesh, axis="sp")
+    return causal_attention(q, k, v, use_flash=cfg.use_flash)
+
+
+def seq_shard(cfg) -> tuple[int, int]:
+    """(sp, idx): the size of ``cfg.mesh``'s ``sp`` axis and this rank's
+    position on it where the attention shards the sequence over it (ring
+    or Ulysses over a mesh); (1, 0) otherwise. A rank then computes the
+    positions ``[idx * T/sp, (idx + 1) * T/sp)``."""
+    mesh = cfg.mesh
+    if cfg.attention_impl not in ("ring", "ulysses") or mesh is None:
+        return 1, 0
+    return mesh.size(mesh.mesh_dim_names.index("sp")), \
+        mesh.get_local_rank("sp")
+
+
+def local_positions(cfg, t: int) -> slice:
+    """The slice of ``t`` positions this rank computes (``seq_shard``)."""
+    sp, idx = seq_shard(cfg)
+    if t % sp:
+        raise ValueError(f"seq length {t} must divide by sp={sp}")
+    c = t // sp
+    return slice(idx * c, (idx + 1) * c)

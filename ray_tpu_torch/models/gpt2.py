@@ -14,7 +14,13 @@ What differs from the JAX module, and why:
   is no trace to shorten).
 * ``with_logical_constraint`` is dropped: the model runs on plain local
   tensors; the sharded train step gathers the parameters before it
-  (``train/train_step.py``), laid out by ``gpt2_shardings``.
+  (``train/train_step.py``), laid out by ``gpt2_shardings``. Where the
+  attention shards the sequence (``attention_impl`` ``"ring"`` or
+  ``"ulysses"`` over ``mesh``, whose ``sp`` axis exceeds 1), a rank
+  computes its own T/sp positions (``models/_remat.py:local_positions``),
+  at their absolute positions, where JAX constrains the activations to
+  ``("batch", "seq", None)``: the hidden states, the logits and the loss
+  are this rank's, the loss the mean over its positions.
 * ``remat`` maps onto ``torch.utils.checkpoint`` per block
   (``models/_remat.py``): ``True`` saves nothing inside the block,
   ``"dots"`` saves only ``aten.mm``/``aten.addmm`` outputs (the four
@@ -22,8 +28,8 @@ What differs from the JAX module, and why:
   everything.
 * Where JAX multiplies bf16 operands with ``preferred_element_type=float32``
   the product is taken in fp32 on the upcast operands (the upcast is exact).
-* ``attention_impl`` other than ``"auto"`` raises: ring and Ulysses
-  attention are later slices.
+* ``attention_impl`` ``"ring"`` and ``"ulysses"`` without a mesh run
+  ``causal_attention``, as in the JAX package.
 * The decode half updates the cache in place and returns it (the
   reference's donated buffer), and maps token ids as JAX's gather does
   (``ops/attention.py:take_rows``).
@@ -42,7 +48,8 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch._tree import tree_map
 from ray_tpu_torch.models._remat import (
-    check_attention_impl,
+    attention,
+    local_positions,
     remat_block,
     run_layers,
 )
@@ -78,6 +85,8 @@ class GPT2Config:
     remat: Any = True
     scan_layers: bool = True  # accepted for parity; layers always loop
     use_flash: bool | None = None  # None = auto by seq_len and device
+    # "auto" | "ring" (ring attention over the mesh's sp axis) | "ulysses"
+    # (the sp-axis all_to_all head scatter); ring/ulysses need ``mesh``.
     attention_impl: str = "auto"
     # LM-head matmul output dtype; None = fp32 logits. The CE reductions
     # run in fp32 either way.
@@ -89,6 +98,8 @@ class GPT2Config:
     # [V/n, D] slices of the tied head, each chunk recomputed in backward, so
     # the [B, T, V] logits never exist at once. Must divide vocab_size.
     ce_vocab_chunks: int = 1
+    # The parallel.mesh DeviceMesh ring / Ulysses attention run over.
+    mesh: Any = dataclasses.field(default=None, compare=False)
 
     @property
     def head_dim(self) -> int:
@@ -205,8 +216,7 @@ def _block(x, p: Params, cfg: GPT2Config):
     y, x_skip = _norm_residual(x, p["ln1_scale"], p["ln1_bias"], cfg)
     qkv = y @ p["attn_qkv_w"].to(dt) + p["attn_qkv_b"].to(dt)
     q, k_, v_ = (a.reshape(b, t, h, hd) for a in qkv.split(d, dim=-1))
-    attn = causal_attention(q, k_, v_, use_flash=cfg.use_flash)
-    attn = attn.reshape(b, t, d)
+    attn = attention(q, k_, v_, cfg).reshape(b, t, d)
     x = x_skip + attn @ p["attn_out_w"].to(dt) + p["attn_out_b"].to(dt)
 
     y, x_skip = _norm_residual(x, p["ln2_scale"], p["ln2_bias"], cfg)
@@ -216,11 +226,11 @@ def _block(x, p: Params, cfg: GPT2Config):
 
 
 def gpt2_hidden(params: Params, tokens, cfg: GPT2Config):
-    """tokens [B, T] int -> final-layernormed hidden states [B, T, D]."""
-    check_attention_impl(cfg.attention_impl)
-    t = tokens.shape[1]
+    """tokens [B, T] int -> final-layernormed hidden states [B, T, D]
+    (this rank's positions of T where the attention shards them)."""
+    pos = local_positions(cfg, tokens.shape[1])
     dt = cfg.dtype
-    x = params["wte"].to(dt)[tokens] + params["wpe"].to(dt)[:t]
+    x = params["wte"].to(dt)[tokens[:, pos]] + params["wpe"].to(dt)[pos]
     block_fn = remat_block(functools.partial(_block, cfg=cfg), cfg.remat)
     x = run_layers(block_fn, x, params["blocks"], cfg.n_layer)
     if cfg.fused_norm:
@@ -281,7 +291,8 @@ def gpt2_loss(params: Params, batch: dict, cfg: GPT2Config):
     """Next-token cross-entropy. batch: {'tokens': [B, T+1] int}: inputs are
     tokens[:, :-1], targets tokens[:, 1:]."""
     tokens = batch["tokens"].long()
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    inputs = tokens[:, :-1]
+    targets = tokens[:, 1:][:, local_positions(cfg, inputs.shape[1])]
     if cfg.ce_vocab_chunks > 1:
         x = gpt2_hidden(params, inputs, cfg)
         return _chunked_ce(x, params["wte"], targets, cfg)

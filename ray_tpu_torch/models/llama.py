@@ -10,11 +10,14 @@ is. Compute is in ``cfg.dtype`` (bf16), parameters and the loss in fp32.
 What differs from the JAX module, and why (as in ``models/gpt2.py``):
 
 * ``scan_layers`` is accepted and ignored: the layers run as a Python loop.
-* ``with_logical_constraint`` and the ``mesh`` field are dropped: the
-  model runs on plain local tensors; the sharded train step gathers the
-  parameters before it (``train/train_step.py``), laid out by
-  ``llama_shardings``. ``attention_impl`` other than ``"auto"`` (ring,
-  Ulysses) raises.
+* ``with_logical_constraint`` is dropped: the model runs on plain local
+  tensors; the sharded train step gathers the parameters before it
+  (``train/train_step.py``), laid out by ``llama_shardings``. Where the
+  attention shards the sequence (``attention_impl`` ``"ring"`` or
+  ``"ulysses"`` over ``mesh``, whose ``sp`` axis exceeds 1), a rank
+  computes its own T/sp positions, as in ``models/gpt2.py``; RoPE takes
+  their absolute positions. The GQA repeat stays before the attention, as
+  in JAX, so the ring exchanges the repeated K and V.
 * ``remat`` maps onto ``torch.utils.checkpoint`` per block
   (``models/_remat.py``); under ``"dots"`` the seven projections are saved
   and the norms, RoPE, attention and SwiGLU are recomputed.
@@ -42,9 +45,11 @@ import torch.nn.functional as F
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch._tree import tree_map
 from ray_tpu_torch.models._remat import (
-    check_attention_impl,
+    attention,
+    local_positions,
     remat_block,
     run_layers,
+    seq_shard,
 )
 from ray_tpu_torch.ops.attention import (
     cache_write_prompt,
@@ -80,9 +85,11 @@ class LlamaConfig:
     remat: Any = "dots"  # same semantics as GPT2Config.remat
     scan_layers: bool = True  # accepted for parity; layers always loop
     use_flash: bool | None = None
-    attention_impl: str = "auto"
+    attention_impl: str = "auto"  # "auto" | "ring" | "ulysses", as GPT-2's
     # RMSNorm(+residual) through the CUDA kernels of ops/fused_norm.py.
     fused_norm: bool = False
+    # The parallel.mesh DeviceMesh ring / Ulysses attention run over.
+    mesh: Any = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         assert self.n_head % self.n_kv_head == 0, "GQA needs even groups"
@@ -190,15 +197,15 @@ def llama_init(generator: torch.Generator, cfg: LlamaConfig, *,
 _rms_norm = ref_rms_norm  # the plain chain, eps 1e-6
 
 
-def _rope(x, theta: float):
-    """Rotary embedding over [B, T, H, D] at positions 0..T-1: the two
-    halves of the head dim are rotated (not interleaved pairs), with fp32
-    angles, and the result is cast back to ``x.dtype``."""
+def _rope(x, theta: float, offset: int = 0):
+    """Rotary embedding over [B, T, H, D] at positions offset..offset+T-1:
+    the two halves of the head dim are rotated (not interleaved pairs),
+    with fp32 angles, and the result is cast back to ``x.dtype``."""
     _, t, _, d = x.shape
     half = d // 2
     freqs = theta ** (-torch.arange(half, dtype=torch.float32,
                                     device=x.device) / half)
-    angles = torch.arange(t, dtype=torch.float32,
+    angles = torch.arange(offset, offset + t, dtype=torch.float32,
                           device=x.device)[:, None] * freqs[None, :]
     cos = torch.cos(angles)[None, :, None, :]  # [1, T, 1, half]
     sin = torch.sin(angles)[None, :, None, :]
@@ -234,11 +241,11 @@ def _block(x, p: Params, cfg: LlamaConfig):
     q = (y @ p["wq"].to(dt)).reshape(b, t, nh, hd)
     k = (y @ p["wk"].to(dt)).reshape(b, t, nkv, hd)
     v = (y @ p["wv"].to(dt)).reshape(b, t, nkv, hd)
-    q = _rope(q, cfg.rope_theta)
-    k = _rope(k, cfg.rope_theta)
+    offset = seq_shard(cfg)[1] * t  # this rank's first position
+    q = _rope(q, cfg.rope_theta, offset)
+    k = _rope(k, cfg.rope_theta, offset)
     # GQA; the result is contiguous, as the flash kernels take it.
-    attn = causal_attention(q, _expand_kv(k, cfg), _expand_kv(v, cfg),
-                            use_flash=cfg.use_flash)
+    attn = attention(q, _expand_kv(k, cfg), _expand_kv(v, cfg), cfg)
     x = x_skip + attn.reshape(b, t, nh * hd) @ p["wo"].to(dt)
 
     y, x_skip = _norm_residual(x, p["mlp_norm"], cfg)
@@ -248,10 +255,11 @@ def _block(x, p: Params, cfg: LlamaConfig):
 
 
 def llama_forward(params: Params, tokens, cfg: LlamaConfig):
-    """tokens [B, T] int -> logits [B, T, V] fp32."""
-    check_attention_impl(cfg.attention_impl)
+    """tokens [B, T] int -> logits [B, T, V] fp32 (this rank's positions
+    of T where the attention shards them)."""
     dt = cfg.dtype
-    x = params["embed"].to(dt)[tokens]
+    pos = local_positions(cfg, tokens.shape[1])
+    x = params["embed"].to(dt)[tokens[:, pos]]
     block_fn = remat_block(functools.partial(_block, cfg=cfg), cfg.remat)
     x = run_layers(block_fn, x, params["blocks"], cfg.n_layer)
     if cfg.fused_norm:
@@ -265,7 +273,8 @@ def llama_loss(params: Params, batch: dict, cfg: LlamaConfig):
     """Next-token cross-entropy. batch: {'tokens': [B, T+1] int}: inputs are
     tokens[:, :-1], targets tokens[:, 1:]."""
     tokens = batch["tokens"].long()
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    inputs = tokens[:, :-1]
+    targets = tokens[:, 1:][:, local_positions(cfg, inputs.shape[1])]
     logits = llama_forward(params, inputs, cfg)
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, targets[..., None])[..., 0]

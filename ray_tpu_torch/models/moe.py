@@ -23,7 +23,9 @@ What differs from the JAX module, and why (as in ``models/llama.py``):
   combine products (``aten.mm``) are saved, and the rest is recomputed,
   the expert exchange of the ``ep`` path included.
 * As in the JAX module, the norms are the plain RMSNorm chain whatever
-  ``fused_norm`` says; attention goes through ``causal_attention``.
+  ``fused_norm`` says, and attention goes through ``causal_attention``
+  whatever ``attention_impl`` says: at ``sp`` above 1 every ``sp`` rank
+  computes the whole sequence (ROADMAP G3).
 """
 
 from __future__ import annotations
@@ -37,11 +39,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch._tree import tree_map
-from ray_tpu_torch.models._remat import (
-    check_attention_impl,
-    remat_block,
-    run_layers,
-)
+from ray_tpu_torch.models._remat import remat_block, run_layers
 from ray_tpu_torch.models.llama import LlamaConfig, _expand_kv, _rms_norm, _rope
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.ops.moe import (
@@ -64,7 +62,6 @@ class MoEConfig(LlamaConfig):
     capacity_factor: float = 1.25
     aux_loss_coef: float = 0.01
     expert_parallel: bool = False
-    mesh: Any = dataclasses.field(default=None, compare=False)
 
     @classmethod
     def tiny(cls) -> "MoEConfig":
@@ -184,7 +181,6 @@ def _block(carry, p: Params, cfg: MoEConfig):
 def moe_forward(params: Params, tokens, cfg: MoEConfig):
     """tokens [B, T] int -> (logits [B, T, V] fp32, aux_loss scalar, the
     mean over layers)."""
-    check_attention_impl(cfg.attention_impl)
     dt = cfg.dtype
     x = params["embed"].to(dt)[tokens]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

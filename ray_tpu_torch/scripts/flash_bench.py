@@ -44,6 +44,7 @@ why it is run as a file. ``--out`` appends the line to a file;
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import statistics
@@ -127,6 +128,25 @@ def flash_inputs(b, t, h, d, seed, packed=True):
 def cosine(a, b) -> float:
     a, b = a.double().flatten(), b.double().flatten()
     return float(a @ b / (a.norm() * b.norm()))
+
+
+@contextlib.contextmanager
+def plain_flash(fa):
+    """The flash wrappers' custom ops, as ring attention calls them, routed
+    to their plain versions on any device (no kernel launches, no counts):
+    the ring on the plain versions, to hold the ring on the kernels
+    against."""
+    saved = fa._flash_fwd_op, fa._flash_dkv_op, fa._flash_dq_op
+    fa._flash_fwd_op = lambda q, k, v, s, c: fa.ref_flash_fwd(
+        q, k, v, softmax_scale=s, causal=c)
+    fa._flash_dkv_op = lambda *a: fa.ref_flash_dkv(*a[:6], softmax_scale=a[6],
+                                                   causal=a[7])
+    fa._flash_dq_op = lambda *a: fa.ref_flash_dq(*a[:6], softmax_scale=a[6],
+                                                 causal=a[7])
+    try:
+        yield
+    finally:
+        fa._flash_fwd_op, fa._flash_dkv_op, fa._flash_dq_op = saved
 
 
 def bench_shape(fa, shape, flush) -> dict:

@@ -66,7 +66,8 @@ def _measure(init_params, loss_fn, vocab_size: int, seq_len: int,
     Returns {tok_s, mfu, ms_step, loss, losses, dt, steps, warmup, batch,
     device, mesh, peak_memory_bytes}; ``losses`` holds every step's loss,
     warmup included, ``mfu`` is taken against the device's dense bf16 peak
-    times the mesh's size, ``tok_s`` counts the global batch, and
+    times the mesh's size, ``tok_s`` counts the global batch once (its
+    rows are shared by the ``sp`` and ``ep`` ranks), and
     ``peak_memory_bytes`` is this rank's ``torch.cuda.max_memory_allocated``
     from before the init (None on the CPU).
     """
@@ -122,7 +123,9 @@ def _measure(init_params, loss_fn, vocab_size: int, seq_len: int,
 def measure_gpt2(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
                  device=None, mesh=None) -> dict:  # step-timed
     """Timed GPT-2 train-step loop -> measurement dict (see ``_measure``);
-    with ``mesh`` the step is sharded by ``gpt2_shardings``."""
+    with ``mesh`` the step is sharded by ``gpt2_shardings`` and the model
+    runs on that mesh (ring or Ulysses attention over its ``sp`` axis
+    where ``cfg.attention_impl`` says so)."""
     from ray_tpu_torch.models.gpt2 import (
         gpt2_flops_per_token,
         gpt2_init,
@@ -131,6 +134,8 @@ def measure_gpt2(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
     )
 
     device = resolve_device(device)
+    if mesh is not None:
+        cfg = dataclasses.replace(cfg, mesh=mesh)
     return _measure(lambda g: gpt2_init(g, cfg, device=device),
                     lambda p, b: gpt2_loss(p, b, cfg), cfg.vocab_size,
                     cfg.seq_len, gpt2_flops_per_token(cfg), batch, steps,
@@ -142,7 +147,8 @@ def measure_llama(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
                   device=None, mesh=None) -> dict:  # step-timed
     """Timed Llama train-step loop -> measurement dict (see ``_measure``);
     MFU from ``llama_flops_per_token``; with ``mesh`` the step is sharded
-    by ``llama_shardings``."""
+    by ``llama_shardings`` and the model runs on that mesh, as in
+    ``measure_gpt2``."""
     from ray_tpu_torch.models.llama import (
         llama_flops_per_token,
         llama_init,
@@ -151,6 +157,8 @@ def measure_llama(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
     )
 
     device = resolve_device(device)
+    if mesh is not None:
+        cfg = dataclasses.replace(cfg, mesh=mesh)
     return _measure(lambda g: llama_init(g, cfg, device=device),
                     lambda p, b: llama_loss(p, b, cfg), cfg.vocab_size,
                     cfg.seq_len, llama_flops_per_token(cfg), batch, steps,

@@ -11,7 +11,7 @@ by the device time of the kernels they launched themselves.
 
     python -m ray_tpu_torch.scripts.profile_step
         [--config flash|dense|llama|moe] [--batch N] [--steps 2] [--mesh]
-        [--out profile_step.json]
+        [--sp N --impl ring|ulysses] [--out profile_step.json]
 
 ``flash`` (the default) is GPT-2 small with ``measure.FUSED_FLAGS``,
 ``dense`` the same with ``measure.FUSED_DENSE_FLAGS`` (both batch 8 unless
@@ -32,14 +32,25 @@ step whose loss is only the sum of every parameter (``machinery_ms``:
 what the mesh adds around the model -- the gather, its backward and
 AdamW on local shards -- with almost no model work). Beside the device
 time, the top operators by host (self CPU) time a step say where the
-host's time goes. Needs a CUDA device.
+host's time goes. ``--sp N`` profiles the GPT-2 (``flash``) or Llama
+step with the sequence sharded over ``sp=N`` ranks, ``--impl``
+attention (``build_mesh(MeshConfig(fsdp=1, sp=N))``, each rank the whole
+batch and its T/N positions, as ``chip_smoke.py`` phase 5 runs it): it
+starts N processes of this module on cuda:0..N-1, one NCCL group, each
+profiling its own step, and prints rank 0's (the NCCL kernels, the
+point-to-point exchange and the gradients' all-reduce, in their own
+class). Needs a CUDA device (N of them with ``--sp``).
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
+import subprocess
+import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -55,6 +66,7 @@ CLASSES = (
                     "gelu_fwd_kernel", "gelu_bwd_kernel")),
     # fp32 GEMMs (TF32 off): cuBLAS's sgemm / f32f32 / nvjet_sss names.
     ("matmul_fp32", ("sgemm", "f32f32", "nvjet_sss")),
+    ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("softmax", ("softmax",)),
     ("reduce", ("reduce",)),
@@ -109,12 +121,57 @@ def profile_step(batch: int | None = None, steps: int = 2, warmup: int = 2,
         distributed.shutdown()
 
 
-def _profile_train(batch, steps, warmup, config, mesh) -> dict:
+def profile_sp(batch: int | None, steps: int, config: str, sp: int,
+               impl: str, timeout: float = 900.0) -> dict:
+    """``sp`` ranks of this module (``--rank``), each profiling the step
+    with the sequence sharded over them; returns rank 0's result."""
+    from ray_tpu_torch.parallel.distributed import free_port
+
+    address = f"127.0.0.1:{free_port()}"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "rank0.json"
+        cmd = [sys.executable, "-m", "ray_tpu_torch.scripts.profile_step",
+               "--config", config, "--steps", str(steps), "--sp", str(sp),
+               "--impl", impl, "--address", address, "--out", str(out)]
+        if batch:
+            cmd += ["--batch", str(batch)]
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)],
+                                  stdout=subprocess.DEVNULL)
+                 for r in range(sp)]
+        try:
+            rcs = [p.wait(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if rcs != [0] * sp:
+            raise RuntimeError(f"profile_step --sp {sp}: ranks exited {rcs}")
+        return json.loads(out.read_text())
+
+
+def _profile_rank(batch, steps, warmup, config, sp, impl, rank,
+                  address) -> dict:
+    from ray_tpu_torch.parallel import distributed
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    distributed.initialize("profile-step-sp", rank, sp,
+                           coordinator_address=address)
+    try:
+        return _profile_train(batch, steps, warmup, config,
+                              build_mesh(MeshConfig(fsdp=1, sp=sp)), impl)
+    finally:
+        distributed.shutdown()
+
+
+def _profile_train(batch, steps, warmup, config, mesh, impl=None) -> dict:
     from ray_tpu_torch.train.train_step import make_init_fn, make_train_step
 
     device = torch.device("cuda")
     batch = batch or DEFAULT_BATCH[config]
     cfg, init, loss, shardings = _model(config)
+    if impl is not None:
+        cfg = dataclasses.replace(cfg, attention_impl=impl, mesh=mesh)
     sh = shardings(cfg, mesh) if mesh is not None else None
     state = make_init_fn(lambda g: init(g, cfg, device=device), sh, mesh)(
         torch.Generator(device=device).manual_seed(0))
@@ -132,8 +189,11 @@ def _profile_train(batch, steps, warmup, config, mesh) -> dict:
     plain_wall = time.perf_counter() - t0
     out = _profile(lambda: step_fn(state, {"tokens": tokens}), steps,
                    plain_wall, {"config": config, "batch": batch,
-                                "mesh": mesh is not None})
-    if mesh is not None:
+                                "mesh": mesh is not None, "impl": impl,
+                                "mesh_shape": (dict(zip(mesh.mesh_dim_names,
+                                                        mesh.shape))
+                                               if mesh is not None else None)})
+    if mesh is not None and impl is None:
         out.update(_against_unsharded(lambda g: init(g, cfg, device=device),
                                       lambda p, b: loss(p, b, cfg), sh, mesh,
                                       {"tokens": tokens}))
@@ -277,11 +337,26 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--mesh", action="store_true",
                     help="the train step sharded over a mesh of 1")
+    ap.add_argument("--sp", type=int, default=None,
+                    help="the step with the sequence over this many ranks")
+    ap.add_argument("--impl", choices=("ring", "ulysses"), default="ring")
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--address", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
-    if args.config in SERVE_CONFIGS:
+    if args.sp is not None and args.config not in ("flash", "llama"):
+        raise SystemExit("profile_step: --sp takes --config flash or llama")
+    if args.rank is not None:
+        result = _profile_rank(args.batch, args.steps, 2, args.config,
+                               args.sp, args.impl, args.rank, args.address)
+        if args.rank:
+            return
+    elif args.sp is not None:
+        result = profile_sp(args.batch, args.steps, args.config, args.sp,
+                            args.impl)
+    elif args.config in SERVE_CONFIGS:
         result = profile_decode(args.config.split("-")[1], args.steps)
     else:
         result = profile_step(args.batch, args.steps, config=args.config,

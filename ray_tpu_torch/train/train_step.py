@@ -30,7 +30,7 @@ What differs from the JAX module, and why:
   and init draws the full tree on every rank before sharding it; JAX
   initialises sharded, without a full copy. At GPT-2 and Llama small a
   full copy on each rank fits.
-* Only ``dp``, ``fsdp`` and ``ep`` may exceed 1: ``tp``, ``sp`` and
+* Only ``dp``, ``fsdp``, ``ep`` and ``sp`` may exceed 1: ``tp`` and
   ``pp`` above 1 need the model to compute sharded, which is not ported,
   and raise rather than run as storage-only sharding.
 
@@ -42,6 +42,19 @@ experts' slice ``ep`` times over, the other experts' none. The mean over
 ``ep`` is therefore the gradient of the one loss, for the expert weights
 and, since every rank computes the same gradient of the others, for every
 other parameter.
+
+``sp`` is the sequence axis. The batch is replicated over it too. Under
+``attention_impl`` ``"ring"`` or ``"ulysses"`` the model computes this
+rank's T/sp positions only (``models/_remat.py:local_positions``) and its
+loss is the mean over them, so the mean over ``sp`` is the global loss;
+the ring's and Ulysses' backwards route every rank's cotangent to the
+owners of the K/V blocks, so a rank's gradient is that of the sum of the
+``sp`` ranks' losses through its own positions, and the mean over ``sp``
+is the gradient of the global loss. Under ``"auto"``, and in the MoE
+model whatever its ``attention_impl``, nothing is sliced: every ``sp``
+rank computes the whole sequence with no gather, the same loss and
+gradient at ``sp`` times the work (ROADMAP G3; JAX shards those
+activations through GSPMD).
 """
 
 from __future__ import annotations
@@ -64,14 +77,13 @@ DEFAULT_BATCH_SPEC = (("dp", "fsdp"),)
 # Mesh axes whose size above 1 needs the model to compute sharded.
 _NOT_PORTED_AXES = {
     "tp": "tensor parallelism (ROADMAP A10b)",
-    "sp": "ring / Ulysses sequence parallelism (ROADMAP A10, A11)",
     "pp": "the pipeline (ROADMAP A13)",
 }
 
 # Mesh axes over which the gathered parameters' gradients are averaged
-# besides the batch's: the batch is replicated over ``ep``, the expert
-# weights' gradients are not (see above).
-_GRAD_MEAN_AXES = {"ep"}
+# besides the batch's: the batch is replicated over ``ep`` and ``sp``, the
+# gradients are not (see above).
+_GRAD_MEAN_AXES = {"ep", "sp"}
 
 
 def state_shardings(param_shardings: Params) -> TrainState:
@@ -92,12 +104,13 @@ def batch_sharding(mesh, spec=None):
 
 def _check_mesh(mesh) -> None:
     """Raise unless the step can run on ``mesh``: every rank of the default
-    group in it, and no axis but ``dp``, ``fsdp`` and ``ep`` above 1."""
+    group in it, and no axis but ``dp``, ``fsdp``, ``ep`` and ``sp``
+    above 1."""
     for name, size in zip(mesh.mesh_dim_names, mesh.shape):
         if size > 1 and name in _NOT_PORTED_AXES:
             raise NotImplementedError(
                 f"mesh axis {name}={size}: {_NOT_PORTED_AXES[name]} is not "
-                "ported; only dp, fsdp and ep may exceed 1")
+                "ported; only dp, fsdp, ep and sp may exceed 1")
     if mesh.size() != dist.get_world_size():
         raise ValueError(f"the mesh holds {mesh.size()} of "
                          f"{dist.get_world_size()} ranks; it must hold all")

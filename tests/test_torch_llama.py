@@ -285,10 +285,17 @@ def test_three_train_steps_match_jax():
 
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
-def test_unported_attention_impls_raise(impl):
-    jcfg, tcfg = _configs()
+def test_mesh_free_attention_impls_match_jax(impl):
+    """Without a mesh, ``"ring"`` and ``"ulysses"`` run the plain causal
+    attention, as the JAX package runs them: its loss and gradients."""
+    jcfg, tcfg = _configs(attention_impl=impl)
     params, tokens = _inputs(jcfg)
-    with pytest.raises(NotImplementedError, match=impl):
-        tllama.llama_loss(params_from_numpy(params, "cpu"),
-                          {"tokens": torch.from_numpy(tokens)},
-                          dataclasses.replace(tcfg, attention_impl=impl))
+    jloss, jgrads = _jax_value_and_grad(jcfg, params, tokens)
+    tloss, tgrads = _port_value_and_grad(tcfg, params, tokens)
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
+    for path, want in jax.tree_util.tree_flatten_with_path(jgrads)[0]:
+        got = tgrads
+        for key in path:
+            got = got[key.key]
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6,
+                                   err_msg=jax.tree_util.keystr(path))

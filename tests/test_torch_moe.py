@@ -242,6 +242,19 @@ def test_loss_and_grads_match_jax_fp32(remat):
     assert (per_expert > 0).all(), per_expert
 
 
+def test_ring_without_a_mesh_is_auto():
+    """The JAX MoE ignores ``attention_impl``; so does the port's: ``"ring"``
+    with no mesh gives ``"auto"``'s loss and gradients, bit for bit."""
+    jcfg, tcfg = _configs()
+    params, tokens = _inputs(jcfg)
+    loss, grads = _port_value_and_grad(tcfg, params, tokens)
+    rloss, rgrads = _port_value_and_grad(
+        dataclasses.replace(tcfg, attention_impl="ring"), params, tokens)
+    assert rloss == loss
+    for a, b in zip(tree_leaves(rgrads), tree_leaves(grads)):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_loss_and_grads_track_jax_bf16(monkeypatch):
     """bf16 against the JAX function evaluated op by op. Under ``jax.jit``
     XLA's CPU compiler computes this bf16 gradient less exactly: at this

@@ -21,6 +21,7 @@ from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import fused_norm as fn
 from ray_tpu_torch.ops.attention import causal_attention, dense_causal_attention
+from ray_tpu_torch.scripts.flash_bench import plain_flash
 
 REPO = Path(__file__).resolve().parents[1]
 SLICE_MODULES = [
@@ -60,6 +61,8 @@ SLICE_MODULES = [
     "ray_tpu_torch.ops.flash_attention",
     "ray_tpu_torch.ops.fused_norm",
     "ray_tpu_torch.ops.moe",
+    "ray_tpu_torch.ops.ring_attention",
+    "ray_tpu_torch.ops.ulysses",
     "ray_tpu_torch.models",
     "ray_tpu_torch.models._remat",
     "ray_tpu_torch.models.gpt2",
@@ -854,3 +857,54 @@ def test_engine_on_cuda_matches_naive_loop(cuda, model):
                          max_prompt_len=16, prefill_rows=2)
     assert res["match"], res
     assert res["compared"] >= 16, res
+
+
+def _folded_ring(cuda, b, t, h, sp, seed):
+    """The single-process ring's out, dq, dk and dv on q/k/v strided views
+    of one folded [sp * B, T / sp, 3 * H * 64] bf16 tensor."""
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn(b, t, 3 * h * 64, generator=g, device=cuda,
+                      dtype=torch.bfloat16)
+    do = torch.randn(b, t, h, 64, generator=g, device=cuda,
+                     dtype=torch.bfloat16)
+    leaves = [x.reshape(sp * b, t // sp, h, 64).detach().requires_grad_(True)
+              for x in ra.fold_sequence(qkv, sp).split(h * 64, dim=-1)]
+    out = ra.ring_flash_attention_local(*leaves, ring=ra.FoldedRing(sp))
+    grads = torch.autograd.grad(out, leaves, ra.fold_sequence(do, sp))
+    return [out.detach(), *grads]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp", [2, 4])
+def test_folded_ring_kernels_match_plain(cuda, sp):
+    """Ring attention on the flash kernels, all sp positions in one
+    process, against the same ring on their plain versions: out, dq, dk
+    and dv finite (rank 0 masks sp - 1 blocks through the lse +1e30) and
+    by cosine > 0.9999; flash_fwd, flash_dkv and flash_dq launched sp
+    times each."""
+    before = dict(fa.KERNEL_INVOCATIONS)
+    got = _folded_ring(cuda, 2, 1024, 4, sp, 0)
+    torch.cuda.synchronize()
+    launched = {k: fa.KERNEL_INVOCATIONS[k] - before.get(k, 0)
+                for k in ("flash_fwd", "flash_dkv", "flash_dq")}
+    assert launched == {"flash_fwd": sp, "flash_dkv": sp, "flash_dq": sp}
+    with plain_flash(fa):
+        want = _folded_ring(cuda, 2, 1024, 4, sp, 0)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        cos = torch.nn.functional.cosine_similarity(
+            a.float().flatten(), b.float().flatten(), dim=0)
+        assert float(cos) > 0.9999, (name, float(cos))
+
+
+@pytest.mark.gpu
+def test_ring_on_cuda_raises_where_the_kernels_cannot_run(cuda):
+    """fp32 on the card raises (G1): the ring does not fall back to the
+    plain versions."""
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    q = torch.randn(2, 64, 2, 64, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ra.ring_flash_attention_local(q, q, q, ring=ra.FoldedRing(2))

@@ -23,6 +23,19 @@ over the mesh's ``ep`` axis on the inputs' ``param/<router|w_in|w_out>``,
 writes ``out``, ``aux`` and the gradients averaged over the ranks
 (``grad/<name>``, as the train step averages them over ``ep``).
 
+A job with ``"sp_ops": true`` runs ring attention (``impl`` ``"fused"``
+and ``"dense"``) and Ulysses once over the mesh's ``sp`` axis on this
+rank's positions of the inputs' ``q``, ``k`` and ``v`` ([B, T, H, D],
+every rank the same), and the backward of the sum of ``out ** 2`` over
+the rank's positions; rank 0 writes ``<impl>/<out|dq|dk|dv>``, each
+gathered whole along T from the ranks.
+
+A job with ``"sp_steps"`` (a list of ``attention_impl`` values) runs the
+model's train steps once for each, from the same inputs, with the model
+on the mesh (``cfg.mesh``); rank 0 writes ``<impl>/losses``,
+``<impl>/grad_norms`` and ``<impl>/calls``: how many times the model
+called ring attention and Ulysses.
+
 Rank 0 writes ``out`` (an ``.npz``): the losses, grad norms and lr of
 every step, the final state gathered whole (``state/<path>``) and the
 loaded state gathered whole (``loaded/<path>``). Every rank writes
@@ -30,6 +43,8 @@ loaded state gathered whole (``loaded/<path>``). Every rank writes
 wrote. Each rank checks that it imported nothing of JAX or ``ray_tpu``.
 """
 
+import collections
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -39,8 +54,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from ray_tpu_torch.models import gpt2, llama, moe  # noqa: E402
+from ray_tpu_torch.models import _remat, gpt2, llama, moe  # noqa: E402
 from ray_tpu_torch.ops.moe import moe_ffn_ep  # noqa: E402
+from ray_tpu_torch.ops.ring_attention import (  # noqa: E402
+    ring_causal_attention)
+from ray_tpu_torch.ops.ulysses import ulysses_attention  # noqa: E402
 from ray_tpu_torch.parallel import distributed  # noqa: E402
 from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh  # noqa: E402
 from ray_tpu_torch.train import checkpoint  # noqa: E402
@@ -120,6 +138,66 @@ def ffn_ep(mesh, job: dict, out: dict) -> None:
         out[f"grad/{name}"] = (g / mesh.size()).numpy()
 
 
+def sp_ops(mesh, job: dict, out: dict) -> None:
+    """Ring attention and Ulysses forward and backward on this rank's
+    positions; every result gathered whole along T."""
+    inputs = dict(np.load(job["inputs"]))
+    group = mesh.get_group("sp")
+    sp, idx = torch.distributed.get_world_size(group), mesh.get_local_rank("sp")
+    c = inputs["q"].shape[1] // sp
+    bodies = {
+        "fused": lambda *a: ring_causal_attention(*a, mesh, impl="fused"),
+        "dense": lambda *a: ring_causal_attention(*a, mesh, impl="dense"),
+        "ulysses": lambda *a: ulysses_attention(*a, mesh),
+    }
+    for name, body in bodies.items():
+        leaves = [torch.from_numpy(inputs[n][:, idx * c:(idx + 1) * c])
+                  .requires_grad_(True) for n in "qkv"]
+        o = body(*leaves)
+        (o ** 2).sum().backward()
+        for key, t in zip(("out", "dq", "dk", "dv"),
+                          [o.detach()] + [x.grad for x in leaves]):
+            parts = [torch.empty_like(t) for _ in range(sp)]
+            torch.distributed.all_gather(parts, t.contiguous(), group=group)
+            out[f"{name}/{key}"] = torch.cat(parts, dim=1).numpy()
+
+
+def sp_steps(mesh, job: dict, out: dict) -> None:
+    """The model's train steps for each ``attention_impl`` of the job, the
+    model on the mesh, counting its calls of ring attention and Ulysses."""
+    make_cfg, loss, shardings_fn = MODELS[job["model"]]
+    inputs = dict(np.load(job["inputs"]))
+    calls: collections.Counter = collections.Counter()
+
+    def counting(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    _remat.ring_causal_attention = counting("ring", _remat.ring_causal_attention)
+    _remat.ulysses_attention = counting("ulysses", _remat.ulysses_attention)
+    batch = {"tokens": torch.from_numpy(inputs["tokens"])}
+    for impl in job["sp_steps"]:
+        calls.clear()
+        cfg = dataclasses.replace(make_cfg(mesh), attention_impl=impl,
+                                  mesh=mesh)
+        shardings = shardings_fn(cfg, mesh)
+        init = _nest(inputs, "param")
+        state = make_init_fn(lambda g: init, shardings, mesh)(
+            torch.Generator())
+        step = make_train_step(lambda p, b: loss(p, b, cfg), shardings,
+                               mesh)
+        losses, norms = [], []
+        for _ in range(job["steps"]):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        out[f"{impl}/losses"] = np.array(losses)
+        out[f"{impl}/grad_norms"] = np.array(norms)
+        out[f"{impl}/calls"] = np.array([calls["ring"], calls["ulysses"]])
+
+
 def model_job(mesh, job: dict, out: dict) -> None:
     """The train steps, saves and loads of a model job (see above)."""
     make_cfg, loss, shardings_fn = MODELS[job["model"]]
@@ -167,7 +245,11 @@ def main(rank: int, world: int, address: str, job: dict) -> None:
     try:
         mesh = build_mesh(MeshConfig(**job["mesh"]), device="cpu")
         out: dict = {}
-        (ffn_ep if job.get("ffn_ep") else model_job)(mesh, job, out)
+        run = next((fn for key, fn in (("ffn_ep", ffn_ep),
+                                        ("sp_ops", sp_ops),
+                                        ("sp_steps", sp_steps))
+                    if job.get(key)), model_job)
+        run(mesh, job, out)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))
         if bad:
