@@ -21,6 +21,15 @@ What differs from the JAX module, and why:
   at their absolute positions, where JAX constrains the activations to
   ``("batch", "seq", None)``: the hidden states, the logits and the loss
   are this rank's, the loss the mean over its positions.
+* Over the mesh's ``tp`` axis (``mesh`` with ``tp`` above 1) a rank
+  computes Megatron-style, where XLA partitions the JAX model by its
+  ``"qkv"``, ``"mlp"`` and ``"vocab"`` names
+  (``parallel/tensor_parallel.py``): its H/tp heads (the fused qkv
+  weight's share taken from each of the q, k and v thirds, since the
+  stored ``"qkv"`` shard is not laid out by heads) and 4D/tp MLP columns,
+  the attention and MLP outputs all-reduced in ``cfg.dtype`` before their
+  biases, the tied ``wte`` looked up and multiplied by its V/tp rows, and
+  the CE statistics combined over ``tp``.
 * ``remat`` maps onto ``torch.utils.checkpoint`` per block
   (``models/_remat.py``): ``True`` saves nothing inside the block,
   ``"dots"`` saves only ``aten.mm``/``aten.addmm`` outputs (the four
@@ -46,7 +55,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch._tree import tree_map
+from ray_tpu_torch._tree import tree_leaves, tree_map
 from ray_tpu_torch.models._remat import (
     attention,
     local_positions,
@@ -66,6 +75,16 @@ from ray_tpu_torch.ops.fused_norm import (
     fused_layer_norm_residual,
     ref_gelu,
     ref_layer_norm,
+)
+from ray_tpu_torch.parallel.tensor_parallel import (
+    check_divisible,
+    copy_to_tp,
+    gather_from_tp,
+    reduce_from_tp,
+    tp_shard,
+    tp_slice,
+    vocab_parallel_ce,
+    vocab_parallel_embed,
 )
 
 Params = dict[str, Any]
@@ -147,10 +166,18 @@ def gpt2_param_axes(cfg: GPT2Config) -> Params:
     }
 
 
+def _check_tp(cfg: GPT2Config, tp: int) -> None:
+    check_divisible(tp, n_head=cfg.n_head, d_ff=4 * cfg.d_model,
+                    vocab_size=cfg.vocab_size)
+
+
 def gpt2_shardings(cfg: GPT2Config, mesh, rules=None) -> Params:
-    """A ``parallel.sharding.NamedSharding`` for every param leaf."""
+    """A ``parallel.sharding.NamedSharding`` for every param leaf; raises
+    where the mesh's ``tp`` does not divide the heads, the MLP width or
+    the vocabulary."""
     from ray_tpu_torch.parallel.sharding import logical_sharding
 
+    _check_tp(cfg, mesh.size(mesh.mesh_dim_names.index("tp")))
     return tree_map(lambda axes: logical_sharding(mesh, axes, rules),
                     gpt2_param_axes(cfg))
 
@@ -208,21 +235,33 @@ def _norm_residual(x, scale, bias, cfg: GPT2Config):
 
 
 def _block(x, p: Params, cfg: GPT2Config):
-    """One transformer block. x: [B, T, D] in cfg.dtype."""
+    """One transformer block. x: [B, T, D] in cfg.dtype. Over ``tp`` a
+    rank computes its H/tp heads and 4D/tp MLP columns: the fused qkv
+    weight's columns are q | k | v, so its share is the ``idx``-th slice of
+    each third."""
     b, t, d = x.shape
-    h, hd = cfg.n_head, cfg.head_dim
+    tp, idx, group = tp_shard(cfg)
+    h, hd = cfg.n_head // tp, cfg.head_dim
     dt = cfg.dtype
 
     y, x_skip = _norm_residual(x, p["ln1_scale"], p["ln1_bias"], cfg)
-    qkv = y @ p["attn_qkv_w"].to(dt) + p["attn_qkv_b"].to(dt)
-    q, k_, v_ = (a.reshape(b, t, h, hd) for a in qkv.split(d, dim=-1))
-    attn = attention(q, k_, v_, cfg).reshape(b, t, d)
-    x = x_skip + attn @ p["attn_out_w"].to(dt) + p["attn_out_b"].to(dt)
+    y = copy_to_tp(y, group)
+    qkv = y @ tp_slice(p["attn_qkv_w"], -1, tp, idx, 3).to(dt) \
+        + tp_slice(p["attn_qkv_b"], -1, tp, idx, 3).to(dt)
+    q, k_, v_ = (a.reshape(b, t, h, hd) for a in qkv.split(h * hd, dim=-1))
+    attn = attention(q, k_, v_, cfg).reshape(b, t, h * hd)
+    x = x_skip + reduce_from_tp(
+        attn @ tp_slice(p["attn_out_w"], 0, tp, idx).to(dt), group) \
+        + p["attn_out_b"].to(dt)
 
     y, x_skip = _norm_residual(x, p["ln2_scale"], p["ln2_bias"], cfg)
-    y = y @ p["mlp_in_w"].to(dt) + p["mlp_in_b"].to(dt)
+    y = copy_to_tp(y, group)
+    y = y @ tp_slice(p["mlp_in_w"], -1, tp, idx).to(dt) \
+        + tp_slice(p["mlp_in_b"], -1, tp, idx).to(dt)
     y = fused_gelu(y) if cfg.fused_norm else ref_gelu(y)
-    return x_skip + y @ p["mlp_out_w"].to(dt) + p["mlp_out_b"].to(dt)
+    return x_skip + reduce_from_tp(
+        y @ tp_slice(p["mlp_out_w"], 0, tp, idx).to(dt), group) \
+        + p["mlp_out_b"].to(dt)
 
 
 def gpt2_hidden(params: Params, tokens, cfg: GPT2Config):
@@ -230,12 +269,34 @@ def gpt2_hidden(params: Params, tokens, cfg: GPT2Config):
     (this rank's positions of T where the attention shards them)."""
     pos = local_positions(cfg, tokens.shape[1])
     dt = cfg.dtype
-    x = params["wte"].to(dt)[tokens[:, pos]] + params["wpe"].to(dt)[pos]
+    tp, idx, group = tp_shard(cfg)
+    _check_tp(cfg, tp)
+    x = vocab_parallel_embed(params["wte"].to(dt), tokens[:, pos], tp, idx,
+                             group) + params["wpe"].to(dt)[pos]
     block_fn = remat_block(functools.partial(_block, cfg=cfg), cfg.remat)
     x = run_layers(block_fn, x, params["blocks"], cfg.n_layer)
     if cfg.fused_norm:
         return fused_layer_norm(x, params["lnf_scale"], params["lnf_bias"])
     return _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
+
+
+def gpt2_stage_fn(cfg: GPT2Config):
+    """GPT-2's blocks as a pipeline stage (``parallel/pipeline.py``):
+    ``(p, x) -> x`` [B, T, D] through every block of ``p``, a
+    ``params["blocks"]`` tree of any depth, under ``cfg.remat``."""
+    block_fn = remat_block(functools.partial(_block, cfg=cfg), cfg.remat)
+
+    def stage(p, x):
+        return run_layers(block_fn, x, p, tree_leaves(p)[0].shape[0])
+
+    return stage
+
+
+def gpt2_stage_params(blocks: Params, pp: int) -> Params:
+    """``params["blocks"]`` ([n_layer, ...] leaves) as ``pp`` stages of
+    n_layer / pp blocks each ([pp, n_layer / pp, ...])."""
+    return tree_map(lambda v: v.reshape(pp, v.shape[0] // pp, *v.shape[1:]),
+                    blocks)
 
 
 def _head_dtype(cfg: GPT2Config) -> torch.dtype:
@@ -250,9 +311,12 @@ def _head(x, w, cfg: GPT2Config):
 
 
 def gpt2_forward(params: Params, tokens, cfg: GPT2Config):
-    """tokens [B, T] -> logits [B, T, V] (fp32 unless cfg.logits_dtype)."""
+    """tokens [B, T] -> logits [B, T, V] (fp32 unless cfg.logits_dtype);
+    over ``tp`` each rank computes its V/tp columns and gathers the rest."""
     x = gpt2_hidden(params, tokens, cfg)
-    return _head(x, params["wte"].to(cfg.dtype), cfg)
+    tp, idx, group = tp_shard(cfg)
+    w = tp_slice(params["wte"], 0, tp, idx).to(cfg.dtype)
+    return gather_from_tp(_head(copy_to_tp(x, group), w, cfg), group)
 
 
 def _ce_chunk(m, s, picked, x, wc, targets, base: int, cfg: GPT2Config):
@@ -270,30 +334,42 @@ def _ce_chunk(m, s, picked, x, wc, targets, base: int, cfg: GPT2Config):
 
 def _chunked_ce(x, wte, targets, cfg: GPT2Config):
     """Online-logsumexp cross-entropy over vocab chunks; each chunk is
-    checkpointed, so peak logits memory is [B, T, V/n] forward and back."""
+    checkpointed (where there are several), so peak logits memory is
+    [B, T, V/n] forward and back. Over ``tp`` a rank runs the chunks of
+    its V/tp rows and the ranks' statistics are combined
+    (``vocab_parallel_ce``)."""
     n = cfg.ce_vocab_chunks
-    v, _ = wte.shape
+    tp, idx, group = tp_shard(cfg)
+    v = wte.shape[0] // tp
     if v % n:
-        raise ValueError(f"ce_vocab_chunks={n} must divide vocab_size={v}")
+        raise ValueError(f"ce_vocab_chunks={n} must divide vocab_size="
+                         f"{wte.shape[0]} (over tp={tp}: {v})")
     vc = v // n
-    w_chunks = wte.to(cfg.dtype).reshape(n, vc, -1)
+    w_chunks = tp_slice(wte, 0, tp, idx).to(cfg.dtype).reshape(n, vc, -1)
+    x = copy_to_tp(x, group)
     bt = targets.shape
     m = torch.full(bt, float("-inf"), device=x.device)
     s = torch.zeros(bt, device=x.device)
     picked = torch.zeros(bt, device=x.device)
-    for i in range(n):
-        m, s, picked = checkpoint(_ce_chunk, m, s, picked, x, w_chunks[i],
-                                  targets, i * vc, cfg, use_reentrant=False)
-    return torch.mean(m + torch.log(s) - picked)
+    if n == 1:
+        m, s, picked = _ce_chunk(m, s, picked, x, w_chunks[0], targets,
+                                 idx * v, cfg)
+    else:
+        for i in range(n):
+            m, s, picked = checkpoint(_ce_chunk, m, s, picked, x,
+                                      w_chunks[i], targets, idx * v + i * vc,
+                                      cfg, use_reentrant=False)
+    return vocab_parallel_ce(m, s, picked, group)
 
 
 def gpt2_loss(params: Params, batch: dict, cfg: GPT2Config):
     """Next-token cross-entropy. batch: {'tokens': [B, T+1] int}: inputs are
-    tokens[:, :-1], targets tokens[:, 1:]."""
+    tokens[:, :-1], targets tokens[:, 1:]. Over ``tp`` both CE paths run
+    on the rank's V/tp rows (``_chunked_ce``)."""
     tokens = batch["tokens"].long()
     inputs = tokens[:, :-1]
     targets = tokens[:, 1:][:, local_positions(cfg, inputs.shape[1])]
-    if cfg.ce_vocab_chunks > 1:
+    if cfg.ce_vocab_chunks > 1 or tp_shard(cfg)[0] > 1:
         x = gpt2_hidden(params, inputs, cfg)
         return _chunked_ce(x, params["wte"], targets, cfg)
     logits = gpt2_forward(params, inputs, cfg).float()

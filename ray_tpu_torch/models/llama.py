@@ -18,6 +18,13 @@ What differs from the JAX module, and why (as in ``models/gpt2.py``):
   computes its own T/sp positions, as in ``models/gpt2.py``; RoPE takes
   their absolute positions. The GQA repeat stays before the attention, as
   in JAX, so the ring exchanges the repeated K and V.
+* Over the mesh's ``tp`` axis (``mesh`` with ``tp`` above 1) a rank
+  computes Megatron-style, where XLA partitions the JAX model by its
+  ``"qkv"``, ``"mlp"`` and ``"vocab"`` names
+  (``parallel/tensor_parallel.py``): its query and KV heads and SwiGLU
+  columns, ``wo`` and ``w_down``'s partial products all-reduced in
+  ``cfg.dtype``, ``embed`` looked up from its V/tp rows, the fp32 head
+  [D, V/tp] a rank and the CE statistics combined over ``tp``.
 * ``remat`` maps onto ``torch.utils.checkpoint`` per block
   (``models/_remat.py``); under ``"dots"`` the seven projections are saved
   and the norms, RoPE, attention and SwiGLU are recomputed.
@@ -62,6 +69,16 @@ from ray_tpu_torch.ops.fused_norm import (
     fused_rms_norm,
     fused_rms_norm_residual,
     ref_rms_norm,
+)
+from ray_tpu_torch.parallel.tensor_parallel import (
+    check_divisible,
+    copy_to_tp,
+    gather_from_tp,
+    reduce_from_tp,
+    tp_shard,
+    tp_slice,
+    vocab_parallel_ce,
+    vocab_parallel_embed,
 )
 
 Params = dict[str, Any]
@@ -149,10 +166,18 @@ def llama_param_axes(cfg: LlamaConfig) -> Params:
     }
 
 
+def _check_tp(cfg: LlamaConfig, tp: int) -> None:
+    check_divisible(tp, n_head=cfg.n_head, n_kv_head=cfg.n_kv_head,
+                    d_ff=cfg.d_ff, vocab_size=cfg.vocab_size)
+
+
 def llama_shardings(cfg: LlamaConfig, mesh, rules=None) -> Params:
-    """A ``parallel.sharding.NamedSharding`` for every param leaf."""
+    """A ``parallel.sharding.NamedSharding`` for every param leaf; raises
+    where the mesh's ``tp`` does not divide the query or KV heads, d_ff or
+    the vocabulary."""
     from ray_tpu_torch.parallel.sharding import logical_sharding
 
+    _check_tp(cfg, mesh.size(mesh.mesh_dim_names.index("tp")))
     return tree_map(lambda axes: logical_sharding(mesh, axes, rules),
                     llama_param_axes(cfg))
 
@@ -232,53 +257,94 @@ def _norm_residual(x, scale, cfg: LlamaConfig):
 
 
 def _block(x, p: Params, cfg: LlamaConfig):
-    """One decoder block. x: [B, T, D] in cfg.dtype."""
+    """One decoder block. x: [B, T, D] in cfg.dtype. Over ``tp`` a rank
+    computes its n_head/tp query heads, n_kv_head/tp KV heads (the GQA
+    groups of its query heads, since both shards are contiguous) and
+    d_ff/tp SwiGLU columns."""
     b, t, _ = x.shape
-    nh, nkv, hd = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    tp, idx, group = tp_shard(cfg)
+    nh, nkv, hd = cfg.n_head // tp, cfg.n_kv_head // tp, cfg.head_dim
     dt = cfg.dtype
 
+    def col(name):
+        return tp_slice(p[name], -1, tp, idx).to(dt)
+
+    def row(name):
+        return tp_slice(p[name], 0, tp, idx).to(dt)
+
     y, x_skip = _norm_residual(x, p["attn_norm"], cfg)
-    q = (y @ p["wq"].to(dt)).reshape(b, t, nh, hd)
-    k = (y @ p["wk"].to(dt)).reshape(b, t, nkv, hd)
-    v = (y @ p["wv"].to(dt)).reshape(b, t, nkv, hd)
+    y = copy_to_tp(y, group)
+    q = (y @ col("wq")).reshape(b, t, nh, hd)
+    k = (y @ col("wk")).reshape(b, t, nkv, hd)
+    v = (y @ col("wv")).reshape(b, t, nkv, hd)
     offset = seq_shard(cfg)[1] * t  # this rank's first position
     q = _rope(q, cfg.rope_theta, offset)
     k = _rope(k, cfg.rope_theta, offset)
     # GQA; the result is contiguous, as the flash kernels take it.
     attn = attention(q, _expand_kv(k, cfg), _expand_kv(v, cfg), cfg)
-    x = x_skip + attn.reshape(b, t, nh * hd) @ p["wo"].to(dt)
+    x = x_skip + reduce_from_tp(attn.reshape(b, t, nh * hd) @ row("wo"),
+                                group)
 
     y, x_skip = _norm_residual(x, p["mlp_norm"], cfg)
-    gate = y @ p["w_gate"].to(dt)
-    up = y @ p["w_up"].to(dt)
-    return x_skip + (F.silu(gate) * up) @ p["w_down"].to(dt)
+    y = copy_to_tp(y, group)
+    gate = y @ col("w_gate")
+    up = y @ col("w_up")
+    return x_skip + reduce_from_tp((F.silu(gate) * up) @ row("w_down"),
+                                   group)
+
+
+def _hidden(params: Params, tokens, cfg: LlamaConfig):
+    """tokens [B, T] int -> final-normed hidden states [B, T, D] (this
+    rank's positions of T where the attention shards them)."""
+    dt = cfg.dtype
+    pos = local_positions(cfg, tokens.shape[1])
+    tp, idx, group = tp_shard(cfg)
+    _check_tp(cfg, tp)
+    x = vocab_parallel_embed(params["embed"].to(dt), tokens[:, pos], tp,
+                             idx, group)
+    block_fn = remat_block(functools.partial(_block, cfg=cfg), cfg.remat)
+    x = run_layers(block_fn, x, params["blocks"], cfg.n_layer)
+    if cfg.fused_norm:
+        return fused_rms_norm(x, params["final_norm"])
+    return _rms_norm(x, params["final_norm"])
+
+
+def _local_logits(params: Params, tokens, cfg: LlamaConfig):
+    """fp32 logits of this rank's V/tp head columns (all V at tp = 1)."""
+    tp, idx, group = tp_shard(cfg)
+    x = copy_to_tp(_hidden(params, tokens, cfg), group)
+    head = tp_slice(params["lm_head"], -1, tp, idx)
+    return x.float() @ head.to(cfg.dtype).float()
 
 
 def llama_forward(params: Params, tokens, cfg: LlamaConfig):
     """tokens [B, T] int -> logits [B, T, V] fp32 (this rank's positions
-    of T where the attention shards them)."""
-    dt = cfg.dtype
-    pos = local_positions(cfg, tokens.shape[1])
-    x = params["embed"].to(dt)[tokens[:, pos]]
-    block_fn = remat_block(functools.partial(_block, cfg=cfg), cfg.remat)
-    x = run_layers(block_fn, x, params["blocks"], cfg.n_layer)
-    if cfg.fused_norm:
-        x = fused_rms_norm(x, params["final_norm"])
-    else:
-        x = _rms_norm(x, params["final_norm"])
-    return x.float() @ params["lm_head"].to(dt).float()
+    of T where the attention shards them; over ``tp`` each rank computes
+    its V/tp columns and gathers the rest)."""
+    return gather_from_tp(_local_logits(params, tokens, cfg),
+                          tp_shard(cfg)[2])
 
 
 def llama_loss(params: Params, batch: dict, cfg: LlamaConfig):
     """Next-token cross-entropy. batch: {'tokens': [B, T+1] int}: inputs are
-    tokens[:, :-1], targets tokens[:, 1:]."""
+    tokens[:, :-1], targets tokens[:, 1:]. Over ``tp`` each rank's
+    statistics of its V/tp logits are combined (``vocab_parallel_ce``)."""
     tokens = batch["tokens"].long()
     inputs = tokens[:, :-1]
     targets = tokens[:, 1:][:, local_positions(cfg, inputs.shape[1])]
-    logits = llama_forward(params, inputs, cfg)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, targets[..., None])[..., 0]
-    return torch.mean(lse - picked)
+    logits = _local_logits(params, inputs, cfg)
+    _, idx, group = tp_shard(cfg)
+    if group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, targets[..., None])[..., 0]
+        return torch.mean(lse - picked)
+    v = logits.shape[-1]
+    local = targets - idx * v
+    here = (local >= 0) & (local < v)
+    picked = logits.gather(-1, local.clamp(0, v - 1)[..., None])[..., 0]
+    m = logits.amax(-1)
+    s = torch.exp(logits - m[..., None]).sum(-1)
+    return vocab_parallel_ce(m, s, torch.where(here, picked, 0), group)
 
 
 # -- autoregressive decoding (serving path) --------------------------------

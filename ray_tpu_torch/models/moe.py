@@ -26,6 +26,10 @@ What differs from the JAX module, and why (as in ``models/llama.py``):
   ``fused_norm`` says, and attention goes through ``causal_attention``
   whatever ``attention_impl`` says: at ``sp`` above 1 every ``sp`` rank
   computes the whole sequence (ROADMAP G3).
+* ``tp`` above 1 raises ``NotImplementedError`` (ROADMAP A12c): the JAX
+  model shards the experts' ``w_in`` / ``w_out`` over ``"mlp"`` and the
+  attention and head as Llama's; the port's model computes none of it
+  sharded yet.
 """
 
 from __future__ import annotations
@@ -104,10 +108,18 @@ def moe_param_axes_tree(cfg: MoEConfig) -> Params:
     }
 
 
+def _refuse_tp(mesh) -> None:
+    if mesh is not None and mesh.size(mesh.mesh_dim_names.index("tp")) > 1:
+        raise NotImplementedError(
+            "the MoE model at tp above 1 is not ported (ROADMAP A12c)")
+
+
 def moe_shardings(cfg: MoEConfig, mesh, rules=None) -> Params:
-    """A ``parallel.sharding.NamedSharding`` for every param leaf."""
+    """A ``parallel.sharding.NamedSharding`` for every param leaf; raises
+    ``NotImplementedError`` at ``tp`` above 1 (A12c)."""
     from ray_tpu_torch.parallel.sharding import logical_sharding
 
+    _refuse_tp(mesh)
     return tree_map(lambda axes: logical_sharding(mesh, axes, rules),
                     moe_param_axes_tree(cfg))
 
@@ -193,6 +205,7 @@ def moe_forward(params: Params, tokens, cfg: MoEConfig):
 
 def moe_loss(params: Params, batch: dict, cfg: MoEConfig):
     """Next-token cross-entropy + the router's load-balancing term."""
+    _refuse_tp(cfg.mesh)
     tokens = batch["tokens"].long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     logits, aux = moe_forward(params, inputs, cfg)

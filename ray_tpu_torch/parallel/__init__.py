@@ -1,7 +1,8 @@
 """Parallelism layer (port of ``ray_tpu/parallel``): device meshes over a
-``torch.distributed`` process group, and the logical-axis sharding rules
-as DTensor placements. The pipeline (``pipeline_apply``) is not ported
-yet (ROADMAP A13)."""
+``torch.distributed`` process group, the logical-axis sharding rules as
+DTensor placements, the pipeline over ``pp`` (``pipeline_apply``,
+``pipeline_value_and_grad``), and the collectives the models compute
+over ``tp`` with (``tensor_parallel``, which has no JAX counterpart)."""
 
 from ray_tpu_torch.parallel.mesh import (
     AXIS_ORDER,
@@ -10,6 +11,11 @@ from ray_tpu_torch.parallel.mesh import (
     build_hybrid_mesh,
     build_mesh,
     local_device_count,
+)
+from ray_tpu_torch.parallel.pipeline import (
+    build_1f1b_schedule,
+    pipeline_apply,
+    pipeline_value_and_grad,
 )
 from ray_tpu_torch.parallel.sharding import (
     DEFAULT_RULES,
@@ -26,6 +32,9 @@ __all__ = [
     "build_hybrid_mesh",
     "build_mesh",
     "local_device_count",
+    "build_1f1b_schedule",
+    "pipeline_apply",
+    "pipeline_value_and_grad",
     "DEFAULT_RULES",
     "logical_sharding",
     "logical_spec",

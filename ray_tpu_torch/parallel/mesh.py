@@ -24,9 +24,11 @@ What differs from the JAX module, and why:
 * Ranks carry no slice index, so ``build_hybrid_mesh`` always takes the
   JAX module's path for hosts without one: the ranks split evenly, in
   order, into ``dcn_dp * dcn_pp`` synthetic slices.
-* Only ``dp``, ``fsdp``, ``ep`` (the MoE model's experts) and ``sp`` (ring
-  and Ulysses attention) may exceed 1 in a train step
-  (``train/train_step.py``); a mesh of another shape may still be built.
+* Every axis may exceed 1 in a train step (``train/train_step.py``):
+  ``tp`` with GPT-2 and Llama computing over it
+  (``parallel/tensor_parallel.py``; the MoE model raises, ROADMAP A12c),
+  ``pp`` as storage only, as in the JAX step (the pipelined pass is
+  ``parallel/pipeline.py``).
 """
 
 from __future__ import annotations

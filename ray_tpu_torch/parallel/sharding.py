@@ -20,6 +20,15 @@ What differs from the JAX module, and why:
 * ``with_logical_constraint`` returns ``x``: the port's model code runs on
   plain local tensors (the train step gathers the parameters), where the
   JAX models pass only hints to XLA.
+* ``"heads"``, ``"mlp"``, ``"qkv"`` and ``"vocab"`` map to ``tp`` here as
+  in JAX, for storage. XLA then partitions the JAX model's computation
+  by them; the port's GPT-2 and Llama take their ``tp`` slices of the
+  gathered parameters themselves (``models/gpt2.py:_block``,
+  ``models/llama.py:_block``, the vocabulary-parallel embedding and loss
+  in both) and issue the collectives of ``parallel/tensor_parallel.py``.
+  GPT-2's fused ``attn_qkv_w`` is stored as JAX stores it (the ``"qkv"``
+  shard of rank 0 at tp=2 is q and half of k), and a rank takes its
+  heads from each third of the gathered weight.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 One definition of the timed-step protocol (warmup, a device sync, timed
 steps, tok/s and MFU accounting), shared by ``measure_gpt2``,
 ``measure_llama`` and ``measure_moe`` (MFU against ``_device``'s
-per-device peak table); ``measure_trainer_gpt2`` drives ``measure_gpt2``'s
+per-device peak table), and ``measure_pipeline`` times the pipeline's
+training pass; ``measure_trainer_gpt2`` drives ``measure_gpt2``'s
 run through the trainer (``CudaTrainer(...).fit()``) with the session's
 step anatomy, MFU gauge and sharded checkpoints, on the local backend or
 on a cluster's worker processes (its loop, ``trainer_gpt2_loop``, lives
@@ -187,6 +188,49 @@ def measure_moe(cfg, batch: int, *, steps: int = 20, warmup: int = 3,
                     cfg.seq_len, moe_flops_per_token(cfg), batch, steps,
                     warmup, device, mesh,
                     moe_shardings(cfg, mesh) if mesh is not None else None)
+
+
+def measure_pipeline(stage_params, x, y, mesh, *, stage_fn, loss_fn,
+                     n_micro: int, style: str, steps: int = 3,
+                     warmup: int = 1, device=None) -> dict:  # step-timed
+    """Timed ``pipeline_value_and_grad`` calls (``warmup`` untimed, then
+    ``steps`` timed, each call synced through its loss) -> {ms (a call,
+    on the host clock), loss, grads (the last call's), ticks, bubble_frac
+    (1 - n_micro / ticks, the idle slots of the timetable), style,
+    n_micro, peak_memory_bytes (``max_memory_allocated`` from before the
+    warmup; None on the CPU)}. ``mesh=None`` runs every stage in this
+    process."""
+    from ray_tpu_torch._tree import tree_leaves
+    from ray_tpu_torch.parallel.pipeline import (build_1f1b_schedule,
+                                                 pipeline_value_and_grad)
+
+    device = resolve_device(device)
+    pp = (mesh.size(mesh.mesh_dim_names.index("pp")) if mesh is not None
+          else tree_leaves(stage_params)[0].shape[0])
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    def call():
+        loss, grads = pipeline_value_and_grad(
+            stage_params, x, y, mesh, stage_fn=stage_fn, loss_fn=loss_fn,
+            n_micro=n_micro, style=style)
+        loss.item()
+        return loss, grads
+
+    for _ in range(warmup):
+        call()
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss, grads = call()
+    _sync(device)
+    ticks = len(build_1f1b_schedule(n_micro, pp, style)[0])
+    return {"ms": (time.perf_counter() - t0) / steps * 1e3,
+            "loss": float(loss), "grads": grads, "ticks": ticks,
+            "bubble_frac": 1 - n_micro / ticks, "style": style,
+            "n_micro": n_micro, "pp": pp,
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                                  if device.type == "cuda" else None)}
 
 
 def _zero_launches() -> None:

@@ -7,11 +7,13 @@ the profiler, the summed device-kernel time and busy share, the time per
 kernel class (the port's flash, RMSNorm and other fused-norm kernels,
 fp32 and other matrix products, softmax, reductions, other elementwise,
 the rest), the top kernels by device time, and the top PyTorch operators
-by the device time of the kernels they launched themselves.
+by the device time of the kernels they launched themselves. The NCCL
+kernels (which spin while they wait for the peer) are a class of their
+own, left out of the kernel time and the busy share.
 
     python -m ray_tpu_torch.scripts.profile_step
         [--config flash|dense|llama|moe] [--batch N] [--steps 2] [--mesh]
-        [--sp N --impl ring|ulysses] [--out profile_step.json]
+        [--sp N --impl ring|ulysses] [--tp N] [--out profile_step.json]
 
 ``flash`` (the default) is GPT-2 small with ``measure.FUSED_FLAGS``,
 ``dense`` the same with ``measure.FUSED_DENSE_FLAGS`` (both batch 8 unless
@@ -39,7 +41,12 @@ batch and its T/N positions, as ``chip_smoke.py`` phase 5 runs it): it
 starts N processes of this module on cuda:0..N-1, one NCCL group, each
 profiling its own step, and prints rank 0's (the NCCL kernels, the
 point-to-point exchange and the gradients' all-reduce, in their own
-class). Needs a CUDA device (N of them with ``--sp``).
+class). ``--tp N`` does the same with the model computing over ``tp=N``
+ranks (``build_mesh(MeshConfig(fsdp=1, tp=N))``, each rank the whole
+batch, its heads, MLP columns and vocabulary rows). Every profile counts
+the NCCL kernels a step by collective (``nccl_kernels_per_step``:
+all-reduces, reduce-scatters, all-gathers, sends and receives). Needs a
+CUDA device (N of them with ``--sp`` or ``--tp``).
 """
 
 from __future__ import annotations
@@ -84,6 +91,9 @@ def classify(name: str) -> str:
 
 DEFAULT_BATCH = {"flash": 8, "dense": 8, "llama": 4, "moe": 4}
 MESH_PAIRS = 10
+# The NCCL kernels' collectives, by substring of the kernel name.
+NCCL_KINDS = ("AllReduce", "ReduceScatter", "AllGather", "SendRecv",
+              "Broadcast")
 SERVE_CONFIGS = ("serve-gpt2", "serve-llama")
 
 
@@ -121,23 +131,25 @@ def profile_step(batch: int | None = None, steps: int = 2, warmup: int = 2,
         distributed.shutdown()
 
 
-def profile_sp(batch: int | None, steps: int, config: str, sp: int,
-               impl: str, timeout: float = 900.0) -> dict:
-    """``sp`` ranks of this module (``--rank``), each profiling the step
-    with the sequence sharded over them; returns rank 0's result."""
+def profile_ranks(batch: int | None, steps: int, config: str, axis: str,
+                  n: int, impl: str, timeout: float = 900.0) -> dict:
+    """``n`` ranks of this module (``--rank``), each profiling the step
+    with the mesh's ``axis`` (``sp`` or ``tp``) over them; returns rank
+    0's result."""
     from ray_tpu_torch.parallel.distributed import free_port
 
     address = f"127.0.0.1:{free_port()}"
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "rank0.json"
         cmd = [sys.executable, "-m", "ray_tpu_torch.scripts.profile_step",
-               "--config", config, "--steps", str(steps), "--sp", str(sp),
-               "--impl", impl, "--address", address, "--out", str(out)]
+               "--config", config, "--steps", str(steps), f"--{axis}",
+               str(n), "--impl", impl, "--address", address, "--out",
+               str(out)]
         if batch:
             cmd += ["--batch", str(batch)]
         procs = [subprocess.Popen(cmd + ["--rank", str(r)],
                                   stdout=subprocess.DEVNULL)
-                 for r in range(sp)]
+                 for r in range(n)]
         try:
             rcs = [p.wait(timeout=timeout) for p in procs]
         finally:
@@ -145,33 +157,40 @@ def profile_sp(batch: int | None, steps: int, config: str, sp: int,
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-        if rcs != [0] * sp:
-            raise RuntimeError(f"profile_step --sp {sp}: ranks exited {rcs}")
+        if rcs != [0] * n:
+            raise RuntimeError(f"profile_step --{axis} {n}: ranks exited "
+                               f"{rcs}")
         return json.loads(out.read_text())
 
 
-def _profile_rank(batch, steps, warmup, config, sp, impl, rank,
+def _profile_rank(batch, steps, warmup, config, axis, n, impl, rank,
                   address) -> dict:
     from ray_tpu_torch.parallel import distributed
     from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
-    distributed.initialize("profile-step-sp", rank, sp,
+    distributed.initialize(f"profile-step-{axis}", rank, n,
                            coordinator_address=address)
     try:
         return _profile_train(batch, steps, warmup, config,
-                              build_mesh(MeshConfig(fsdp=1, sp=sp)), impl)
+                              build_mesh(MeshConfig(fsdp=1, **{axis: n})),
+                              impl if axis == "sp" else None, on_mesh=True)
     finally:
         distributed.shutdown()
 
 
-def _profile_train(batch, steps, warmup, config, mesh, impl=None) -> dict:
+def _profile_train(batch, steps, warmup, config, mesh, impl=None,
+                   on_mesh=False) -> dict:
+    """With ``on_mesh`` the model runs on ``mesh`` (``impl`` its
+    attention, where given)."""
     from ray_tpu_torch.train.train_step import make_init_fn, make_train_step
 
     device = torch.device("cuda")
     batch = batch or DEFAULT_BATCH[config]
     cfg, init, loss, shardings = _model(config)
+    if on_mesh:
+        cfg = dataclasses.replace(cfg, mesh=mesh)
     if impl is not None:
-        cfg = dataclasses.replace(cfg, attention_impl=impl, mesh=mesh)
+        cfg = dataclasses.replace(cfg, attention_impl=impl)
     sh = shardings(cfg, mesh) if mesh is not None else None
     state = make_init_fn(lambda g: init(g, cfg, device=device), sh, mesh)(
         torch.Generator(device=device).manual_seed(0))
@@ -193,7 +212,7 @@ def _profile_train(batch, steps, warmup, config, mesh, impl=None) -> dict:
                                 "mesh_shape": (dict(zip(mesh.mesh_dim_names,
                                                         mesh.shape))
                                                if mesh is not None else None)})
-    if mesh is not None and impl is None:
+    if mesh is not None and not on_mesh:
         out.update(_against_unsharded(lambda g: init(g, cfg, device=device),
                                       lambda p, b: loss(p, b, cfg), sh, mesh,
                                       {"tokens": tokens}))
@@ -283,15 +302,26 @@ def _profile(step, steps: int, plain_wall: float, head: dict) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
+    # Device events, less the annotations the NCCL calls put on the
+    # stream (``nccl:all_reduce``), which would count each collective's
+    # time twice.
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     by_class = collections.Counter()
     by_name = collections.Counter()
+    nccl = collections.Counter()
     for e in kernels:
         us = e.time_range.elapsed_us()
         by_class[classify(e.name)] += us
         by_name[e.name] += us
-    busy_us = sum(by_class.values())
+        if classify(e.name) == "nccl":
+            kind = next((k for k in NCCL_KINDS if k.lower() in
+                         e.name.lower()), "other")
+            nccl[kind] += 1
+    # The NCCL kernels spin while they wait for the peer: their time is
+    # kept apart from the busy share.
+    busy_us = sum(by_class.values()) - by_class["nccl"]
     # Host-side operators only (kernel rows carry device time too). A
     # kernel launched through ctypes counts to the operator around it: the
     # flash backward kernels to ``_FlashAttentionBackward``, the RMSNorm
@@ -310,10 +340,12 @@ def _profile(step, steps: int, plain_wall: float, head: dict) -> dict:
         "ms_per_step": plain_wall * 1e3 / steps,
         "profiled_ms_per_step": wall * 1e3 / steps,
         "kernel_ms_per_step": busy_us / 1e3 / steps,
-        # Kernel time over the unprofiled step's wall time: the profiler's
-        # own host cost stretches the profiled window.
+        "nccl_ms_per_step": by_class["nccl"] / 1e3 / steps,
+        # Kernel time (NCCL's apart) over the unprofiled step's wall time:
+        # the profiler's own host cost stretches the profiled window.
         "busy_share": busy_us / 1e6 / plain_wall,
         "kernel_launches_per_step": len(kernels) / steps,
+        "nccl_kernels_per_step": {k: v / steps for k, v in nccl.items()},
         "ms_per_step_by_class": {k: v / 1e3 / steps
                                  for k, v in by_class.most_common()},
         "top_kernels_ms_per_step": [(name[:120], us / 1e3 / steps)
@@ -340,22 +372,29 @@ def main() -> None:
     ap.add_argument("--sp", type=int, default=None,
                     help="the step with the sequence over this many ranks")
     ap.add_argument("--impl", choices=("ring", "ulysses"), default="ring")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="the step with the model over this many tp ranks")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--address", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
-    if args.sp is not None and args.config not in ("flash", "llama"):
-        raise SystemExit("profile_step: --sp takes --config flash or llama")
+    if args.sp is not None and args.tp is not None:
+        raise SystemExit("profile_step: --sp or --tp, not both")
+    axis = "sp" if args.sp is not None else "tp"
+    n = args.sp if args.sp is not None else args.tp
+    if n is not None and args.config not in ("flash", "llama"):
+        raise SystemExit(f"profile_step: --{axis} takes --config flash or "
+                         "llama")
     if args.rank is not None:
-        result = _profile_rank(args.batch, args.steps, 2, args.config,
-                               args.sp, args.impl, args.rank, args.address)
+        result = _profile_rank(args.batch, args.steps, 2, args.config, axis,
+                               n, args.impl, args.rank, args.address)
         if args.rank:
             return
-    elif args.sp is not None:
-        result = profile_sp(args.batch, args.steps, args.config, args.sp,
-                            args.impl)
+    elif n is not None:
+        result = profile_ranks(args.batch, args.steps, args.config, axis, n,
+                               args.impl)
     elif args.config in SERVE_CONFIGS:
         result = profile_decode(args.config.split("-")[1], args.steps)
     else:

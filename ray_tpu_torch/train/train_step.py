@@ -12,9 +12,12 @@ the parameters and AdamW moments are DTensors laid out by
 * keeps this rank's rows of the global batch, by ``batch_spec``;
 * gathers every parameter to a plain full tensor, whose gradient
   placements are ``Partial("avg")`` over the mesh axes the batch is
-  sharded over and over ``ep``, so the backward reduce-scatters (or
-  all-reduces) the gradients to the parameters' own placements -- the
-  collectives XLA inserts from the shardings in the JAX package;
+  sharded over and over ``ep``, ``sp`` and ``pp``, and over ``tp``
+  ``Partial("sum")`` for a parameter sharded over ``tp`` and
+  ``Partial("avg")`` for the others (see below), so the backward
+  reduce-scatters (or all-reduces) the gradients to the parameters' own
+  placements -- the collectives XLA inserts from the shardings in the JAX
+  package;
 * runs the model on plain tensors only, so a DTensor never reaches a
   kernel wrapper;
 * updates the local shards (``train/optim.py``) and returns the global
@@ -30,9 +33,12 @@ What differs from the JAX module, and why:
   and init draws the full tree on every rank before sharding it; JAX
   initialises sharded, without a full copy. At GPT-2 and Llama small a
   full copy on each rank fits.
-* Only ``dp``, ``fsdp``, ``ep`` and ``sp`` may exceed 1: ``tp`` and
-  ``pp`` above 1 need the model to compute sharded, which is not ported,
-  and raise rather than run as storage-only sharding.
+* ``pp`` is storage only here, as in the JAX step: the stacked
+  ``"layers"`` dim is stored sharded over ``pp`` and gathered whole for
+  the step, the batch is replicated over ``pp``, so every ``pp`` rank
+  computes the whole step and the gradients are averaged over ``pp``.
+  The pipelined path, stages over ``pp`` with microbatches streaming
+  between them, is ``parallel/pipeline.py:pipeline_value_and_grad``.
 
 ``ep`` is the MoE model's expert axis (``models/moe.py`` with
 ``expert_parallel``). The batch is replicated over it, so every ``ep``
@@ -42,6 +48,19 @@ experts' slice ``ep`` times over, the other experts' none. The mean over
 ``ep`` is therefore the gradient of the one loss, for the expert weights
 and, since every rank computes the same gradient of the others, for every
 other parameter.
+
+``tp`` is the tensor axis. The batch is replicated over it. The model
+computes Megatron-style over the mesh's ``tp`` group
+(``parallel/tensor_parallel.py``; the model takes the mesh from its
+config), so every ``tp`` rank computes the same loss. A parameter sharded
+over ``tp`` (its spec names ``tp``: the qkv, MLP, output-projection and
+vocabulary leaves) is one a rank uses a slice of, and gets the gradient
+of that slice only: the gradients are summed over ``tp``. Every other
+parameter (norm scales, the row-parallel biases, ``wpe``) is used whole by
+every ``tp`` rank, which gets the whole gradient: they are averaged. A
+model that does not compute over ``tp`` would have its sliced leaves'
+gradients counted ``tp`` times, so the step raises when a forward on a
+mesh with ``tp`` above 1 entered no column-parallel product over it.
 
 ``sp`` is the sequence axis. The batch is replicated over it too. Under
 ``attention_impl`` ``"ring"`` or ``"ulysses"`` the model computes this
@@ -74,16 +93,11 @@ TrainState = dict[str, Any]  # {'params', 'opt': {'mu','nu'}, 'step'}
 # P(("dp", "fsdp"))).
 DEFAULT_BATCH_SPEC = (("dp", "fsdp"),)
 
-# Mesh axes whose size above 1 needs the model to compute sharded.
-_NOT_PORTED_AXES = {
-    "tp": "tensor parallelism (ROADMAP A10b)",
-    "pp": "the pipeline (ROADMAP A13)",
-}
-
 # Mesh axes over which the gathered parameters' gradients are averaged
-# besides the batch's: the batch is replicated over ``ep`` and ``sp``, the
-# gradients are not (see above).
-_GRAD_MEAN_AXES = {"ep", "sp"}
+# besides the batch's: the batch is replicated over ``ep``, ``sp`` and
+# ``pp``, the gradients of ``ep`` and ``sp`` are not, those of ``pp`` are
+# (see above).
+_GRAD_MEAN_AXES = {"ep", "sp", "pp"}
 
 
 def state_shardings(param_shardings: Params) -> TrainState:
@@ -103,14 +117,7 @@ def batch_sharding(mesh, spec=None):
 
 
 def _check_mesh(mesh) -> None:
-    """Raise unless the step can run on ``mesh``: every rank of the default
-    group in it, and no axis but ``dp``, ``fsdp``, ``ep`` and ``sp``
-    above 1."""
-    for name, size in zip(mesh.mesh_dim_names, mesh.shape):
-        if size > 1 and name in _NOT_PORTED_AXES:
-            raise NotImplementedError(
-                f"mesh axis {name}={size}: {_NOT_PORTED_AXES[name]} is not "
-                "ported; only dp, fsdp, ep and sp may exceed 1")
+    """Raise unless every rank of the default group is in ``mesh``."""
     if mesh.size() != dist.get_world_size():
         raise ValueError(f"the mesh holds {mesh.size()} of "
                          f"{dist.get_world_size()} ranks; it must hold all")
@@ -198,6 +205,7 @@ def make_train_step(loss_fn: Callable[[Params, Any], torch.Tensor],
 
     from torch.distributed.tensor import Partial, Replicate
 
+    from ray_tpu_torch.parallel import tensor_parallel
     from ray_tpu_torch.parallel.sharding import spec_axes, spec_placements
 
     _check_mesh(mesh)
@@ -206,9 +214,18 @@ def make_train_step(loss_fn: Callable[[Params, Any], torch.Tensor],
     spec_placements(batch_spec, mesh.mesh_dim_names)  # raises if invalid
     batch_axes = {a for entry in batch_spec for a in spec_axes(entry)}
     mean_axes = batch_axes | _GRAD_MEAN_AXES
-    grad_placements = tuple(
-        Partial("avg") if name in mean_axes and size > 1 else Replicate()
-        for name, size in zip(mesh.mesh_dim_names, mesh.shape))
+    names = mesh.mesh_dim_names
+    tp = mesh.size(names.index("tp"))
+
+    def grad_placements(sharding):
+        # Over tp: summed where the leaf is sharded over tp (a rank uses
+        # its slice), averaged where every tp rank uses it whole.
+        sliced = "tp" in {a for e in sharding.spec for a in spec_axes(e)}
+        return tuple(
+            Partial("sum" if sliced else "avg") if name == "tp" and size > 1
+            else Partial("avg") if name in mean_axes and size > 1
+            else Replicate() for name, size in zip(names, mesh.shape))
+
     replicated = (Replicate(),) * mesh.ndim
     coord = mesh.get_coordinate()
 
@@ -217,14 +234,21 @@ def make_train_step(loss_fn: Callable[[Params, Any], torch.Tensor],
             raise ValueError(f"a parameter's placements {p.placements} are "
                              f"not its sharding's {sharding.placements}")
         return p.redistribute(mesh, replicated).to_local(
-            grad_placements=grad_placements)
+            grad_placements=grad_placements(sharding))
 
     def local_batch(batch):
         return tree_map(lambda v: _local_rows(v, batch_spec, mesh, coord),
                         batch)
 
     def gathered_loss(params, batch):
-        return loss_fn(tree_map(gather, params, param_shardings), batch)
+        before = tensor_parallel.entries()
+        loss = loss_fn(tree_map(gather, params, param_shardings), batch)
+        if tp > 1 and tensor_parallel.entries() == before:
+            raise RuntimeError(
+                f"the model computed nothing over tp={tp}: its sliced "
+                "parameters' gradients would be summed over tp whole; "
+                "give the model the mesh (its config's mesh)")
+        return loss
 
     def global_loss(loss):
         # The mean over the global batch, on every rank.

@@ -80,10 +80,13 @@ SLICE_MODULES = [
     "ray_tpu_torch.parallel.mesh",
     "ray_tpu_torch.parallel.distributed",
     "ray_tpu_torch.parallel.sharding",
+    "ray_tpu_torch.parallel.tensor_parallel",
+    "ray_tpu_torch.parallel.pipeline",
     "ray_tpu_torch.scripts",
     "ray_tpu_torch.scripts.flash_bench",
     "ray_tpu_torch.scripts.measure",
     "ray_tpu_torch.scripts.profile_step",
+    "ray_tpu_torch.scripts.pipeline_bench",
     "ray_tpu_torch.util",
     "ray_tpu_torch.util.metrics",
     "ray_tpu_torch.util.tracing",

@@ -36,6 +36,27 @@ on the mesh (``cfg.mesh``); rank 0 writes ``<impl>/losses``,
 ``<impl>/grad_norms`` and ``<impl>/calls``: how many times the model
 called ring attention and Ulysses.
 
+A job with ``"runs"`` (a list) runs each entry as a model job of its own
+(``model``, ``mesh``, ``inputs``, ``steps``, ``save``) on a mesh of its
+own over the same ranks, the model on that mesh (``cfg.mesh``) with the
+entry's ``cfg`` settings (``ce_vocab_chunks``, ``attention_impl``); with
+``"grads": true`` it records the gradients the step hands the optimizer
+at its first step, gathered whole; with ``"forward": true`` it records
+the largest difference between the model's forward logits on the mesh
+and off it (``cfg.mesh`` None), on the final parameters gathered whole
+and the job's tokens. An entry with ``load`` (and no ``inputs``) loads
+that checkpoint onto its mesh instead. Rank 0 writes
+each entry's results under ``<name>/``.
+
+A job with ``"pp_ops"`` (a list of meshes) runs
+``parallel.pipeline.pipeline_value_and_grad`` (1F1B and GPipe, each
+``n_micro`` of the job) and ``pipeline_apply`` on each mesh, for the stage
+function ``tanh(x @ w + b)`` and an MSE loss, on the inputs'
+``pp<n>/w``, ``pp<n>/b``, ``x`` and ``y``; a mesh with ``dp`` above 1
+splits each microbatch over ``dp`` (``data_spec``) and averages over it
+(``grad_psum_axes``). Rank 0 writes ``<mesh>/<n_micro>_<style>/<loss|w|b>``
+and ``<mesh>/apply/<n_micro>``, the gradients gathered whole.
+
 Rank 0 writes ``out`` (an ``.npz``): the losses, grad norms and lr of
 every step, the final state gathered whole (``state/<path>``) and the
 loaded state gathered whole (``loaded/<path>``). Every rank writes
@@ -54,14 +75,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from ray_tpu_torch._tree import tree_map  # noqa: E402
 from ray_tpu_torch.models import _remat, gpt2, llama, moe  # noqa: E402
 from ray_tpu_torch.ops.moe import moe_ffn_ep  # noqa: E402
 from ray_tpu_torch.ops.ring_attention import (  # noqa: E402
     ring_causal_attention)
 from ray_tpu_torch.ops.ulysses import ulysses_attention  # noqa: E402
 from ray_tpu_torch.parallel import distributed  # noqa: E402
+from ray_tpu_torch.parallel import pipeline  # noqa: E402
 from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh  # noqa: E402
-from ray_tpu_torch.train import checkpoint  # noqa: E402
+from ray_tpu_torch.parallel.sharding import (NamedSharding,  # noqa: E402
+                                             shard_pytree)
+from ray_tpu_torch.train import checkpoint, train_step  # noqa: E402
 from ray_tpu_torch.train.train_step import (make_init_fn,  # noqa: E402
                                             make_train_step, state_shardings)
 
@@ -198,10 +223,14 @@ def sp_steps(mesh, job: dict, out: dict) -> None:
         out[f"{impl}/calls"] = np.array([calls["ring"], calls["ulysses"]])
 
 
-def model_job(mesh, job: dict, out: dict) -> None:
-    """The train steps, saves and loads of a model job (see above)."""
+def model_job(mesh, job: dict, out: dict, prefix: str = "",
+              on_mesh: bool = False) -> None:
+    """The train steps, saves and loads of a model job (see above); with
+    ``on_mesh`` the model runs on ``mesh`` with the job's ``cfg``."""
     make_cfg, loss, shardings_fn = MODELS[job["model"]]
     cfg = make_cfg(mesh)
+    if on_mesh:
+        cfg = dataclasses.replace(cfg, mesh=mesh, **job.get("cfg", {}))
     shardings = shardings_fn(cfg, mesh)
     if job.get("inputs"):
         inputs = dict(np.load(job["inputs"]))
@@ -214,20 +243,96 @@ def model_job(mesh, job: dict, out: dict) -> None:
                                mesh)
         batch = {"tokens": torch.from_numpy(inputs["tokens"])}
         losses, norms, lrs = [], [], []
-        for _ in range(job["steps"]):
-            state, m = step(state, batch)
+        for i in range(job["steps"]):
+            if i == 0 and job.get("grads"):
+                _record_grads(out, prefix + "grad")
+            try:
+                state, m = step(state, batch)
+            finally:
+                train_step.adamw_update = _ADAMW
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
             lrs.append(m["lr"])
-        out.update(losses=np.array(losses), grad_norms=np.array(norms),
-                   lrs=np.array(lrs))
-        _whole(state, "state", out)
+        out.update({prefix + "losses": np.array(losses),
+                    prefix + "grad_norms": np.array(norms),
+                    prefix + "lrs": np.array(lrs)})
+        _whole(state, prefix + "state", out)
+        if job.get("forward"):
+            _forward_gap(state["params"], batch["tokens"], cfg, out,
+                         prefix)
         if job.get("save"):
             checkpoint.save_sharded(state, job["save"])
     if job.get("load"):
         loaded = checkpoint.load_sharded(job["load"],
                                          state_shardings(shardings))
-        _whole(loaded, "loaded", out)
+        _whole(loaded, prefix + "loaded", out)
+
+
+_ADAMW = train_step.adamw_update
+FORWARDS = {"gpt2": gpt2.gpt2_forward, "llama": llama.llama_forward}
+
+
+def _forward_gap(params, tokens, cfg, out: dict, prefix: str) -> None:
+    """max |forward on cfg.mesh - forward off it| / max |logits|."""
+    tree = tree_map(lambda t: t.full_tensor(), params)
+    forward = FORWARDS["gpt2" if isinstance(cfg, gpt2.GPT2Config)
+                       else "llama"]
+    inputs = tokens[:, :-1].long()
+    with torch.no_grad():
+        got = forward(tree, inputs, cfg)
+        want = forward(tree, inputs, dataclasses.replace(cfg, mesh=None))
+    out[prefix + "forward_gap"] = np.array(
+        float((got - want).abs().max() / want.abs().max()))
+
+
+def _record_grads(out: dict, prefix: str) -> None:
+    """Have the next step's optimizer update record the gradients it is
+    handed, gathered whole, under ``prefix/<path>``."""
+    def recording(cfg, grads, *args, **kwargs):
+        _whole(grads, prefix, out)
+        return _ADAMW(cfg, grads, *args, **kwargs)
+
+    train_step.adamw_update = recording
+
+
+def runs(job: dict, out: dict) -> None:
+    """Each entry of ``job["runs"]`` on a mesh of its own (see above)."""
+    for run in job["runs"]:
+        mesh = build_mesh(MeshConfig(**run["mesh"]), device="cpu")
+        model_job(mesh, run, out, run["name"] + "/", on_mesh=True)
+
+
+def _stage(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def _mse(o, y):
+    return torch.mean((o - y) ** 2)
+
+
+def pp_ops(job: dict, out: dict) -> None:
+    """The pipeline's entry points on each mesh of the job (see above)."""
+    inputs = dict(np.load(job["inputs"]))
+    x, y = (torch.from_numpy(inputs[k]) for k in "xy")
+    for mesh_kw in job["pp_ops"]:
+        mesh = build_mesh(MeshConfig(**mesh_kw), device="cpu")
+        pp = mesh_kw["pp"]
+        tag = "_".join(f"{k}{v}" for k, v in mesh_kw.items() if v > 1)
+        spec = NamedSharding(mesh, ("pp", None, None))
+        params = shard_pytree(
+            {k: torch.from_numpy(inputs[f"pp{pp}/{k}"]) for k in "wb"},
+            {"w": spec, "b": NamedSharding(mesh, ("pp", None))}, mesh)
+        split = {"data_spec": (None, "dp"), "grad_psum_axes": ("dp",)} \
+            if mesh_kw.get("dp", 1) > 1 else {}
+        for n in job["n_micro"]:
+            for style in ("1f1b", "gpipe"):
+                loss, grads = pipeline.pipeline_value_and_grad(
+                    params, x, y, mesh, stage_fn=_stage, loss_fn=_mse,
+                    n_micro=n, style=style, **split)
+                out[f"{tag}/{n}_{style}/loss"] = loss.numpy()
+                _whole(grads, f"{tag}/{n}_{style}", out)
+            out[f"{tag}/apply/{n}"] = pipeline.pipeline_apply(
+                params, x, mesh, stage_fn=_stage, n_micro=n).numpy()
 
 
 def main(rank: int, world: int, address: str, job: dict) -> None:
@@ -243,13 +348,19 @@ def main(rank: int, world: int, address: str, job: dict) -> None:
     distributed.initialize("mesh-test", rank, world, device="cpu",
                            coordinator_address=address, timeout=120.0)
     try:
-        mesh = build_mesh(MeshConfig(**job["mesh"]), device="cpu")
         out: dict = {}
-        run = next((fn for key, fn in (("ffn_ep", ffn_ep),
-                                        ("sp_ops", sp_ops),
-                                        ("sp_steps", sp_steps))
-                    if job.get(key)), model_job)
-        run(mesh, job, out)
+        if job.get("runs") or job.get("pp_ops"):
+            if job.get("pp_ops"):
+                pp_ops(job, out)
+            if job.get("runs"):
+                runs(job, out)
+        else:
+            mesh = build_mesh(MeshConfig(**job["mesh"]), device="cpu")
+            run = next((fn for key, fn in (("ffn_ep", ffn_ep),
+                                            ("sp_ops", sp_ops),
+                                            ("sp_steps", sp_steps))
+                        if job.get(key)), model_job)
+            run(mesh, job, out)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))
         if bad:
