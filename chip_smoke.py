@@ -200,13 +200,48 @@ that fails:
    printed). The engines' numbers (decode tok/s at full occupancy, step
    ms graph and eager, prefill ms, TTFT p50/p99, peak memory) are
    printed beside the card's name and power limit;
-8. one JSON line of every TPU kernel of the JAX package, all ported, with
+8. the data library, run right after phase 4b (the order of the calls;
+   the number keeps the earlier phases' numbers):
+   8a. ingest: ``measure_trainer_gpt2(dataset=ds)``, phase 4b's run with
+   each step's batch read through
+   ``session.get_dataset_shard("train").iter_device_batches(batch_size=8)``
+   (pinned host memory, a copy stream of its own, the consumer's stream
+   waiting on an event), ``ds`` phase 4b's seed-1 token batch moved to the
+   host once, one copy a step (6 x 8 rows of 1025 tokens over 6 blocks),
+   through ``map_batches(as_tokens)``, every kernel counter set to 0 just
+   before and read just after. Held: the losses within rtol 1e-5 of phase
+   4b's; the seven kernels launched exactly as in phase 4b (the same calls
+   of the step); every batch int64 on cuda:0, one transfer recorded a
+   batch; the client's stall fraction (time inside ``next()`` over the
+   loop's wall) within 0.10 of the one ``ray_tpu_data_iter_seconds``
+   gives, and that histogram's wait seconds (one sample a batch) within
+   20% + 0.3 ms of the client's. Printed: ms/step beside phase 4b's,
+   data_wait a step from the session's anatomy, wait and transfer seconds
+   a batch from the metrics, peak memory;
+   8b. batch inference: ``measure_batch_predict_gpt2``, i.e.
+   ``BatchPredictor.from_checkpoint(Checkpoint.from_dict({"params": 8a's
+   trained parameters as numpy}), CudaPredictor, apply_fn=gpt2_score)``
+   scoring 256 rows of 1025 seed-2 tokens with an ``id`` column at batch 8
+   on one actor, every kernel counter set to 0 just before ``predict`` and
+   read just after. Held: every id back once; each row's NLL bit for bit
+   equal to a direct ``gpt2_score`` call on the same 8 rows; within rtol
+   1e-3 of the plain path (dense attention, plain norms), and every
+   batch's logits, each token's centred on its mean, within 0.05
+   relative error and cosine > 0.999 of the plain path's (a row's NLL is
+   a mean over 1024 tokens that a wrong kernel barely moves); ``ln_fwd``,
+   ``gelu_fwd`` and ``flash_fwd`` launched 25, 12 and 12 times a batch
+   (one forward) over the 32 batches, no other kernel. Printed: rows/s,
+   tokens/s, ms a batch end to end beside the direct call's and
+   ``CudaPredictor.predict``'s on the same numpy batches out of the pool,
+   the predictor's build seconds, peak memory;
+9. one JSON line of every TPU kernel of the JAX package, all ported, with
    its launches on its main path, over the mesh of 1, with the ring of
    one, through the trainer, through the cluster trainer's worker
-   process, in a call of phase 4c's pipeline and, with two cards, a step
-   a rank at tp=2 (the flash kernels: GPT-2's, with Llama's and the MoE's
-   beside them, and their launches and ms in phase 3b's rings);
-9. the last line, ``{"ok": true, "device": {...}}``.
+   process, in a call of phase 4c's pipeline, fed by the Dataset (8a),
+   a batch of phase 8b's scoring and, with two cards, a step a rank at
+   tp=2 (the flash kernels: GPT-2's, with Llama's and the MoE's beside
+   them, and their launches and ms in phase 3b's rings);
+10. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerances: fused-norm (LayerNorm, RMSNorm, GELU) fp32 outputs within
 1e-5 (forward) and 1e-4 (gradients) of the plain version, relative to the
@@ -338,6 +373,11 @@ RING_SPS = (2, 4)
 # 6, phase 4's batch embedded ([8, 1024, 768] bf16) in PIPE_MICRO
 # microbatches of one sequence, an fp32 MSE to a target from seed 2.
 PIPE_PP, PIPE_MICRO = 2, 8
+# Launches of one GPT-2 forward (fused config, no gradient): two norms per
+# block plus the final one, one GELU and one flash forward per block.
+FORWARD_LAUNCHES = {"ln_fwd": 2 * 12 + 1, "gelu_fwd": 12, "flash_fwd": 12}
+# Phase 8b: rows scored and the batch size.
+PREDICT_ROWS, PREDICT_BATCH = 256, 8
 # The serving phase: requests per engine and new tokens a request; the
 # fp32 check's prompts and tokens.
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 64, 64
@@ -1354,6 +1394,233 @@ def trainer_phase(torch, counters, cfg, ref, smi):
     return run
 
 
+def ingest_phase(torch, counters, cfg, trainer, smi):
+    """Phase 8a: ``measure_trainer_gpt2(dataset=ds)`` -- phase 4b's run
+    (``trainer``) with each step's batch read from a Dataset through
+    ``session.get_dataset_shard("train").iter_device_batches(batch_size=8)``,
+    with every kernel counter set to 0 just before it and read just after.
+    ``ds`` holds phase 4b's seed-1 token batch, moved to the host once, one
+    copy a step (6 x 8 rows of 1025 tokens over 6 blocks), through
+    ``map_batches(as_tokens)``. Holds: the losses against phase 4b's
+    (rtol 1e-5), the seven kernels' launches equal to phase 4b's (the same
+    calls of the step), every batch int64 on cuda:0, and the client's
+    stall fraction (time inside ``next()`` over the loop's wall) within
+    0.10 of the one ``ray_tpu_data_iter_seconds`` gives, and that
+    histogram's wait seconds (one sample a batch) within 20% + 0.3 ms of
+    the client's (the stall fractions are near 0 here, where 0.10 would
+    pass a wait never recorded). The step's
+    trained parameters are kept (the step-6 checkpoint) for phase 8b.
+    Returns the report entry and the parameters as numpy arrays."""
+    import numpy as np
+
+    from ray_tpu_torch import data
+    from ray_tpu_torch.models.convert import params_to_numpy
+    from ray_tpu_torch.scripts.measure import as_tokens, measure_trainer_gpt2
+    from ray_tpu_torch.train.checkpoint import load_sharded
+
+    n_steps = WARMUP + STEPS
+    tokens = torch.randint(
+        0, cfg.vocab_size, (BATCH, cfg.seq_len + 1), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(1)).cpu().numpy()
+    ds = data.from_numpy(np.tile(tokens, (n_steps, 1)),
+                         parallelism=n_steps).map_batches(as_tokens)
+    ckpt_dir = OUT / "ingest_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for c in counters:
+        c.clear()
+    run = measure_trainer_gpt2(cfg, BATCH, steps=n_steps, warmup=WARMUP,
+                               device="cuda", dataset=ds,
+                               ckpt_dir=str(ckpt_dir))
+    launches = {k: sum(c[k] for c in counters) for k in PORTED}
+    run["launches"] = launches
+    state = load_sharded(str(ckpt_dir / f"step{n_steps}"))
+    params = params_to_numpy(state["params"])
+    del state
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    feed = run["data"]
+    gaps = [abs(a - b) / abs(b)
+            for a, b in zip(run["losses"], trainer["losses"])]
+    data_wait = [a["data_wait"] for a in run["anatomy"]]
+    xfer = feed["iter"]["transfer"]
+    stall_gap = abs(feed["client_stall"] - feed["server_stall"])
+    wait_tol = 0.2 * feed["client_wait_s"] + 3e-4
+    wait_gap = abs(feed["iter"]["wait"]["sum_s"] - feed["client_wait_s"])
+    mem = run["peak_memory_bytes"] / 2**30
+    print(f"ingest: Dataset -> iter_device_batches -> CudaTrainer, GPT-2 "
+          f"{cfg.n_params / 1e6:.0f}M batch {BATCH} seq {cfg.seq_len}, "
+          f"{feed['batches']} batches over {ds.num_blocks} blocks "
+          f"[{smi}]: {run['ms_step']:.2f} ms/step ({run['tok_s']:.1f} tok/s)"
+          f" vs phase 4b's fixed batch {trainer['ms_step']:.2f} ms/step (gap "
+          f"{run['ms_step'] / trainer['ms_step'] - 1:+.2%}); peak memory "
+          f"{mem:.2f} GiB (phase 4b {trainer['peak_memory_bytes'] / 2**30:.2f}"
+          f" GiB); losses {[round(x, 4) for x in run['losses']]}, largest "
+          f"relative gap to phase 4b {max(gaps):.3e}; batches {feed['devices']}")
+    print(f"ingest: data_wait per step from the session's anatomy (s) "
+          f"{[round(w, 6) for w in data_wait]}; ray_tpu_data_iter_seconds "
+          f"wait {feed['iter']['wait']['sum_s'] / max(1, feed['batches']):.6f}"
+          f" s, transfer {xfer['sum_s'] / max(1, xfer['count']):.6f} s a "
+          f"batch over {xfer['count']} copies; stall fraction client "
+          f"{feed['client_stall']:.6f} (wait {feed['client_wait_s']:.6f} s of "
+          f"{feed['loop_wall_s']:.4f} s), metrics {feed['server_stall']:.6f}, "
+          f"gap {stall_gap:.6f}; wait seconds client "
+          f"{feed['client_wait_s']:.6f}, metrics "
+          f"{feed['iter']['wait']['sum_s']:.6f} over "
+          f"{feed['iter']['wait']['count']} samples, gap {wait_gap:.6f} "
+          f"(limit {wait_tol:.6f})")
+    print(f"ingest: launches {launches} over {n_steps + 1} calls of the step")
+    require(run["steps_run"] == list(range(1, n_steps + 1)),
+            f"ingest: reported steps {run['steps_run']}")
+    require(max(gaps) <= 1e-5, f"ingest: losses off phase 4b's by "
+            f"{max(gaps):.3e} (rtol 1e-5)")
+    for k in PORTED:
+        require(launches[k] == trainer["launches"][k],
+                f"ingest: {k} launched {launches[k]} times, phase 4b "
+                f"{trainer['launches'][k]}")
+    require([tuple(d) for d in feed["devices"]] == [("cuda:0", "torch.int64")]
+            and feed["batches"] == n_steps,
+            f"ingest: {feed['batches']} batches as {feed['devices']}")
+    require(xfer["count"] == n_steps,
+            f"ingest: {xfer['count']} transfers recorded for {n_steps} batches")
+    require(feed["server_stall"] is not None and stall_gap <= 0.10,
+            f"ingest: stall fraction client {feed['client_stall']} vs metrics "
+            f"{feed['server_stall']} (> 0.10 apart)")
+    require(feed["iter"]["wait"]["count"] == n_steps and wait_gap <= wait_tol,
+            f"ingest: the metrics' wait {feed['iter']['wait']['sum_s']} s over "
+            f"{feed['iter']['wait']['count']} samples vs the client's "
+            f"{feed['client_wait_s']} s over {n_steps} batches (limit "
+            f"{wait_tol:.6f} s apart)")
+    return run, params
+
+
+def batch_predict_phase(torch, counters, cfg, params, smi):
+    """Phase 8b: ``BatchPredictor.from_checkpoint(Checkpoint.from_dict(
+    {"params": params}), CudaPredictor, apply_fn=gpt2_score)`` scoring
+    PREDICT_ROWS rows of 1025 seed-2 tokens with an ``id`` column at
+    ``batch_size=PREDICT_BATCH`` on one actor (``measure_batch_predict_gpt2``),
+    with every kernel counter set to 0 just before ``predict`` and read just
+    after. Holds: every id back once; each row's NLL bit for bit equal to a
+    direct ``gpt2_score`` call on the same rows and parameters; within rtol
+    1e-3 of the plain path (dense attention, plain norms); every batch's
+    logits (``gpt2_forward``), each token's centred on its mean over the
+    vocabulary, within 0.05 relative error (Frobenius) and cosine > 0.999
+    of the plain path's -- the mean NLL of a row hardly moves under a
+    wrong kernel (a non-causal attention), its logits do; ``ln_fwd``,
+    ``gelu_fwd`` and ``flash_fwd`` launched one forward's count a batch
+    and no other kernel. Printed beside the end-to-end numbers: the
+    predictor's build and its ``predict`` on the same numpy batches, out
+    of the pool. Returns the report entry."""
+    import functools
+
+    import numpy as np
+
+    from ray_tpu_torch.models.convert import params_from_numpy
+    from ray_tpu_torch.models.gpt2 import gpt2_forward
+    from ray_tpu_torch.scripts.measure import (gpt2_score,
+                                               measure_batch_predict_gpt2)
+    from ray_tpu_torch.train.batch_predictor import CudaPredictor
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+
+    tokens = torch.randint(
+        0, cfg.vocab_size, (PREDICT_ROWS, cfg.seq_len + 1), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(2)).cpu().numpy()
+    for c in counters:
+        c.clear()
+    res = measure_batch_predict_gpt2(cfg, params=params, tokens=tokens,
+                                     batch_size=PREDICT_BATCH, device="cuda")
+    launches = {k: sum(c[k] for c in counters) for k in PORTED}
+    res["launches"] = launches
+    n_batches = res["batches"]
+
+    # What the layers under BatchPredictor cost, in the same call: the
+    # predictor's build (the parameters' upload), its predict() on numpy
+    # batches (the host conversions and the sync), the model alone.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predictor = CudaPredictor.from_checkpoint(
+        Checkpoint.from_dict({"params": params}), apply_fn=functools.partial(
+            gpt2_score, cfg=cfg), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dev_params = params_from_numpy(params, "cuda")
+    plain = dataclasses.replace(cfg, use_flash=False, fused_norm=False)
+    direct, plain_nll, direct_s, predict_s = [], [], [], []
+    logit_err, logit_cos = [], []
+
+    def centred_logits(tokens, c):
+        """Each token's fp64 logits less their mean over the vocabulary."""
+        lg = gpt2_forward(dev_params, tokens[:, :-1], c).double()
+        return lg - lg.mean(-1, keepdim=True)
+
+    with torch.inference_mode():
+        for i in range(0, PREDICT_ROWS, PREDICT_BATCH):
+            rows = {"id": np.arange(i, i + PREDICT_BATCH),
+                    "tokens": tokens[i:i + PREDICT_BATCH]}
+            t0 = time.perf_counter()
+            predictor.predict(rows)
+            predict_s.append(time.perf_counter() - t0)
+            batch = {"id": torch.arange(i, i + PREDICT_BATCH, device="cuda"),
+                     "tokens": torch.from_numpy(
+                         tokens[i:i + PREDICT_BATCH]).to("cuda")}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nll = gpt2_score(dev_params, batch, cfg)["nll"].cpu().numpy()
+            direct_s.append(time.perf_counter() - t0)
+            direct.append(nll)
+            plain_nll.append(gpt2_score(dev_params, batch, plain)["nll"]
+                             .float().cpu().numpy())
+            got = centred_logits(batch["tokens"], cfg)
+            want = centred_logits(batch["tokens"], plain)
+            logit_err.append(float((got - want).norm() / want.norm()))
+            logit_cos.append(cosine(got, want))
+            del got, want
+    del dev_params, predictor
+    direct, plain_nll = np.concatenate(direct), np.concatenate(plain_nll)
+    bits = bool(np.array_equal(res["nll"], direct))
+    rel = float(np.max(np.abs(res["nll"] - plain_nll) / np.abs(plain_nll)))
+    logit_err, logit_cos = max(logit_err), min(logit_cos)
+    direct_ms = float(np.median(direct_s) * 1e3)
+    predict_ms = float(np.median(predict_s) * 1e3)
+    res.update(bits_equal_direct=bits, rel_vs_plain=rel,
+               logits_rel_err_vs_plain=logit_err,
+               logits_cosine_vs_plain=logit_cos,
+               direct_ms_batch=direct_ms, predict_ms_batch=predict_ms,
+               predictor_build_s=build_s)
+    mem = res["peak_memory_bytes"] / 2**30
+    print(f"batch predict: BatchPredictor + CudaPredictor(gpt2_score), GPT-2 "
+          f"{cfg.n_params / 1e6:.0f}M, {res['rows']} rows x {cfg.seq_len} "
+          f"tokens, batch {PREDICT_BATCH}, 1 actor [{smi}]: "
+          f"{res['rows_s']:.1f} rows/s, {res['tokens_s']:.1f} tokens/s, "
+          f"{res['ms_batch']:.2f} ms a batch end to end over {n_batches} "
+          f"batches ({res['wall_s']:.3f} s) vs the direct gpt2_score call's "
+          f"median {direct_ms:.2f} ms a batch and CudaPredictor.predict's "
+          f"{predict_ms:.2f} (its build {build_s:.3f} s); peak memory "
+          f"{mem:.2f} GiB; "
+          f"mean NLL {float(res['nll'].mean()):.4f}; bits equal to the direct "
+          f"call {bits}; largest relative gap to the plain path {rel:.3e}; "
+          f"centred logits against the plain path's: largest relative "
+          f"error {logit_err:.3e}, smallest cosine {logit_cos:.6f} over "
+          f"{n_batches} batches")
+    print(f"batch predict: launches {launches} over {n_batches} batches")
+    require(res["rows"] == PREDICT_ROWS and np.array_equal(
+        res["ids"], np.arange(PREDICT_ROWS)),
+        f"batch predict: ids {res['ids'][:8]}... ({len(res['ids'])} rows)")
+    require(bool(np.all(np.isfinite(res["nll"]))),
+            "batch predict: non-finite NLL")
+    require(bits, "batch predict: NLL differs from the direct gpt2_score call")
+    require(rel <= 1e-3, f"batch predict: NLL off the plain path by {rel:.3e}"
+            f" (rtol 1e-3)")
+    require(logit_err <= 0.05 and logit_cos > 0.999,
+            f"batch predict: centred logits off the plain path's by "
+            f"{logit_err:.3e} (limit 0.05), cosine {logit_cos:.6f} (limit "
+            f"0.999)")
+    for k in PORTED:
+        want = FORWARD_LAUNCHES.get(k, 0) * n_batches
+        require(launches[k] == want, f"batch predict: {k} launched "
+                f"{launches[k]} times, expected {want}")
+    res["ids"], res["nll"] = res["ids"].tolist(), res["nll"].tolist()
+    return res
+
+
 def cluster_trainer_phase(torch, cfg, ref, local, two_ranks, smi):
     """Phase 5b: ``measure_trainer_gpt2`` on a ``Cluster`` -- phase 4's
     GPT-2 flash run (``ref``) with its rank in a worker process; then, with
@@ -1959,6 +2226,14 @@ def main() -> int:
     # Phase 4b: the trainer, over phase 4's GPT-2 flash run.
     report["trainer"] = trainer_phase(torch, counters, cfg, step, smi)
 
+    # Phase 8: the data library -- phase 4b's run fed from a Dataset (8a),
+    # then batch inference with its trained parameters (8b).
+    report["ingest"], trained = ingest_phase(torch, counters, cfg,
+                                             report["trainer"], smi)
+    report["batch_predict"] = batch_predict_phase(torch, counters, cfg,
+                                                  trained, smi)
+    del trained
+
     # Phase 4c: GPT-2's blocks as a 2-stage pipeline in one process.
     report["pipeline"] = pipeline_phase(torch, counters, smi)
 
@@ -2001,7 +2276,7 @@ def main() -> int:
     # Phase 7: the serving engines.
     report["serving"] = serve_phase(torch, counters, smi)
 
-    # Phase 8: the kernels line. Each kernel's launches are those of the
+    # Phase 9: the kernels line. Each kernel's launches are those of the
     # main path it belongs to (the flash kernels: GPT-2's, with Llama's and
     # the MoE's beside them), and ``launches_mesh`` those of the same path
     # over the mesh of 1.
@@ -2023,6 +2298,10 @@ def main() -> int:
             "launches_mesh": mesh["llama" if kname in RMS_KERNELS
                                   else "gpt2"]["launches"][kname],
             "launches_trainer": report["trainer"]["launches"][kname],
+            "launches_ingest": report["ingest"]["launches"][kname],
+            "launches_batch_predict_per_batch": (
+                report["batch_predict"]["launches"][kname]
+                / report["batch_predict"]["batches"]),
             "launches_cluster": report["cluster_trainer"]["launches"].get(
                 kname, 0),
             "launches_ring_of_one": mesh[("llama" if kname in RMS_KERNELS
@@ -2069,7 +2348,7 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps(report["kernels_line"]))
 
-    # Phase 9.
+    # Phase 10.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,2 +1,2 @@
 """Process-wide runtime state and option validation (port of
-``ray_tpu/_private``: ``worker`` and ``options`` only)."""
+``ray_tpu/_private``: ``worker``, ``options`` and ``usage`` only)."""

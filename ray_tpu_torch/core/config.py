@@ -1,8 +1,10 @@
-"""The two cluster settings that are set from outside the code (port of
+"""The settings that are set from outside the code (port of
 ``ray_tpu/core/config.py``; reference: ``src/ray/common/ray_config_def.h``).
 
 ``head_reconnect_window_s`` (how long a client retries a head it cannot
-reach) and ``cluster_token`` each read an override from
+reach), ``cluster_token`` and ``target_block_size_bytes`` (the data
+library's dynamic block splitting: a stage output larger than this is
+stored as several blocks; 0 disables) each read an override from
 ``RAY_TPU_TORCH_<NAME>`` (the port's own prefix, so a process that runs
 both packages' clusters never hands one package's token to the other)
 at first access; ``config.override(name, value)`` and ``config.reset()``
@@ -29,6 +31,7 @@ _ENV_PREFIX = "RAY_TPU_TORCH_"
 _DEFS: dict[str, tuple[type, Any]] = {
     "head_reconnect_window_s": (float, 15.0),
     "cluster_token": (str, ""),
+    "target_block_size_bytes": (int, 128 * 1024 * 1024),
 }
 
 

@@ -9,6 +9,8 @@ run through the trainer (``CudaTrainer(...).fit()``) with the session's
 step anatomy, MFU gauge and sharded checkpoints, on the local backend or
 on a cluster's worker processes (its loop, ``trainer_gpt2_loop``, lives
 at the top level of this module: it reaches a worker by reference);
+``measure_batch_predict_gpt2`` scores a dataset through
+``BatchPredictor`` and ``CudaPredictor`` with ``gpt2_score``;
 ``measure_serve`` is their serving counterpart, over ``LLMEngine``, and
 ``serve_vs_naive`` holds the engine's greedy tokens against the model's
 full-forward loop, and ``served_vs_fp32`` the engine's logits at its
@@ -247,15 +249,77 @@ def _launches() -> dict:
             **flash_attention.KERNEL_INVOCATIONS}
 
 
+def as_tokens(batch: dict) -> dict:
+    """A ``map_batches`` function: ``from_numpy``'s ``data`` column as the
+    train step's ``tokens`` (at the top level: it reaches a cluster's
+    workers by reference)."""
+    return {"tokens": batch["data"]}
+
+
+class _BatchFeed:
+    """``trainer_gpt2_loop``'s batches from its dataset shard:
+    ``iter_device_batches(batch_size=batch)`` on the loop's device, timed
+    from outside the iterator (the client side of the stall fraction:
+    seconds inside ``next()`` over the loop's wall since the first
+    ``next()``), with this process's ``ray_tpu_data_iter_seconds`` read
+    before and after (the iterator's own account of the same loop). A
+    restart at step ``start`` skips the batches its steps consumed."""
+
+    def __init__(self, shard, batch: int, device, start: int):
+        from ray_tpu_torch.util import metrics
+
+        self._before = metrics.parse_prometheus(metrics.prometheus_text())
+        self._it = iter(shard.iter_device_batches(batch_size=batch,
+                                                  device=device))
+        self.wait_s, self.batches, self._t0 = 0.0, 0, None
+        self.devices = set()
+        for _ in range(start):
+            next(self._it)
+
+    def next(self) -> dict:
+        t = time.perf_counter()
+        if self._t0 is None:
+            self._t0 = t
+        out = next(self._it)
+        self.wait_s += time.perf_counter() - t
+        self.batches += 1
+        self.devices |= {(str(v.device), str(v.dtype)) for v in out.values()}
+        return out
+
+    def summary(self) -> dict:
+        """{batches, client_wait_s, loop_wall_s, client_stall, devices,
+        iter: {wait, user, transfer: {count, sum_s}}, server_stall}."""
+        from ray_tpu_torch.util import metrics as m
+        from ray_tpu_torch.util.goodput import stall_fraction_from
+
+        wall = time.perf_counter() - self._t0
+        delta = m.diff_parsed(self._before,
+                              m.parse_prometheus(m.prometheus_text()))
+        phases = {}
+        for phase in ("wait", "user", "transfer"):
+            d = m.histogram_dist(delta, "ray_tpu_data_iter_seconds",
+                                 phase=phase)
+            phases[phase] = ({"count": int(d["count"]), "sum_s": d["sum"]}
+                             if d else {"count": 0, "sum_s": 0.0})
+        return {"batches": self.batches, "client_wait_s": self.wait_s,
+                "loop_wall_s": wall, "client_stall": self.wait_s / wall,
+                "devices": sorted(self.devices), "iter": phases,
+                "server_stall": stall_fraction_from(delta)}
+
+
 def trainer_gpt2_loop(config: dict) -> None:
     """``measure_trainer_gpt2``'s loop, one rank of it. ``config``: cfg
     (a ``GPT2Config``), batch, steps, fail_at, ckpt_root.
 
     Zeroes this process's kernel counters, builds the state and the batch
-    as ``_measure`` does (seed 0, seed 1) -- over ``build_mesh(MeshConfig(
-    fsdp=-1))`` with ``gpt2_shardings`` when the world has more than one
-    rank, unsharded otherwise -- attaches ``session.set_step_cost(
-    step_cost(...))`` (one more call of the step, on copies), then runs
+    as ``_measure`` does (seed 0, seed 1; with a ``"train"`` dataset shard
+    in the session, each step's batch instead comes from
+    ``shard.iter_device_batches(batch_size=batch)``, through
+    ``_BatchFeed``, and step_cost's call takes the first step's batch) --
+    over ``build_mesh(MeshConfig(fsdp=-1))`` with ``gpt2_shardings`` when
+    the world has more than one rank, unsharded otherwise -- attaches
+    ``session.set_step_cost(step_cost(...))`` (one more call of the step,
+    on copies), then runs
     each step through ``session.timed_step``. Every second step every
     rank ``save_sharded``s the state into ``ckpt_root/step<n>`` and the
     report carries a checkpoint naming that directory (a restart
@@ -265,8 +329,9 @@ def trainer_gpt2_loop(config: dict) -> None:
     step's MFU and phases as this rank's gauges read them after its
     report (the session sets them in ``report``; live only: ``fit``
     retracts them), None after a start. A last report, {final, anatomy,
-    launches, peak_memory_bytes}, carries the last step's, this process's
-    kernel launches and its peak device memory. With ``fail_at`` the
+    launches, data, peak_memory_bytes}, carries the last step's, this
+    process's kernel launches, the feed's ``_BatchFeed.summary()`` (None
+    without a dataset) and its peak device memory. With ``fail_at`` the
     first attempt raises before step ``fail_at`` (counted from 1)."""
     import torch.distributed as dist
 
@@ -305,20 +370,28 @@ def trainer_gpt2_loop(config: dict) -> None:
 
         state = tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor)
                          else x, load_sharded(ckpt.to_dict()["sharded"]))
-    tokens = torch.randint(
-        0, cfg.vocab_size, (batch, cfg.seq_len + 1), device=dev,
-        generator=torch.Generator(device=dev).manual_seed(1))
-    batch_data = {"tokens": tokens}
+    start = int(state["step"])
+    shard = session.get_dataset_shard("train")
+    feed = _BatchFeed(shard, batch, dev, start) if shard is not None else None
+    if feed is not None:
+        batch_data = feed.next()
+    else:
+        tokens = torch.randint(
+            0, cfg.vocab_size, (batch, cfg.seq_len + 1), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1))
+        batch_data = {"tokens": tokens}
     cost = step_cost(step_fn, state, batch_data)
     session.set_step_cost(cost)
     rank = str(session.get_world_rank())
     tags = {"node_id": "local", "trial": "train", "rank": rank}
     first, anatomy = True, None
-    for i in range(state["step"], steps):
+    for i in range(start, steps):
         if config.get("fail_at") is not None and i + 1 == config["fail_at"] \
                 and ckpt is None:
             raise RuntimeError(f"injected failure before step "
                                f"{config['fail_at']}")
+        if feed is not None and i > start:
+            batch_data = feed.next()
         state, metrics = session.timed_step(step_fn, state, batch_data)
         done = i + 1
         report = {"loss": float(metrics["loss"]), "step": done,
@@ -343,6 +416,7 @@ def trainer_gpt2_loop(config: dict) -> None:
                       for ph in ("data_wait", "host", "compute", "sync")}}
     session.report({
         "final": True, "anatomy": anatomy, "launches": _launches(),
+        "data": feed.summary() if feed is not None else None,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None)})
 
@@ -351,7 +425,8 @@ def measure_trainer_gpt2(cfg, batch: int, *, steps: int = 6,
                          warmup: int = 2, fail_at: int | None = None,
                          device=None, address: str | None = None,
                          num_workers: int = 1,
-                         ckpt_dir: str | None = None) -> dict:
+                         ckpt_dir: str | None = None,
+                         dataset=None) -> dict:
     """``measure_gpt2``'s run, ``steps`` steps in all, through the trainer:
     ``CudaTrainer(trainer_gpt2_loop, ScalingConfig(num_workers=...)).fit()``.
 
@@ -365,7 +440,11 @@ def measure_trainer_gpt2(cfg, batch: int, *, steps: int = 6,
     restart resumes from the latest checkpoint
     (``FailureConfig(max_failures=1)``). Checkpoints (``save_sharded``,
     every second step) go under ``ckpt_dir`` (a temporary directory,
-    removed after, when not given).
+    removed after, when not given). With ``dataset`` (a
+    ``ray_tpu_torch.data.Dataset`` of ``{"tokens": [rows, seq_len + 1]}``
+    batches) the trainer splits it over its workers
+    (``datasets={"train": dataset}``) and each step reads its batch from
+    the rank's shard.
 
     Returns {losses (rank 0's, one a reported step, in report order),
     steps_run, ms_step (mean interval between the reports of the steps
@@ -377,7 +456,8 @@ def measure_trainer_gpt2(cfg, batch: int, *, steps: int = 6,
     the gauges' phases and MFU), save_s, restarts, goodput, wall_s (the
     whole ``fit``), device, peak_memory_bytes and launches (rank 0's
     process, its last attempt: the kernels its loop launched, step_cost's
-    call included), num_workers, ckpt_dir}."""
+    call included), data (rank 0's ``_BatchFeed.summary()``, None without
+    ``dataset``), num_workers, ckpt_dir}."""
     import ray_tpu_torch
     from ray_tpu_torch.models.gpt2 import gpt2_flops_per_token
     from ray_tpu_torch.train.config import (FailureConfig, RunConfig,
@@ -399,6 +479,7 @@ def measure_trainer_gpt2(cfg, batch: int, *, steps: int = 6,
             scaling_config=ScalingConfig(num_workers=num_workers),
             run_config=RunConfig(failure_config=FailureConfig(
                 max_failures=1 if fail_at is not None else 0)),
+            datasets={"train": dataset} if dataset is not None else None,
             device=device).fit()
         wall = time.perf_counter() - t0
     finally:
@@ -436,8 +517,96 @@ def measure_trainer_gpt2(cfg, batch: int, *, steps: int = 6,
         "device": device_name(device),
         "peak_memory_bytes": last["peak_memory_bytes"],
         "launches": last["launches"],
+        "data": last["data"],
         "num_workers": num_workers,
         "ckpt_dir": None if own_dir else ckpt_root,
+    }
+
+
+def gpt2_score(params, batch: dict, cfg=None) -> dict:
+    """GPT-2's per-row score, the ``apply_fn`` of ``CudaPredictor``:
+    ``batch`` {"id": [B], "tokens": [B, T + 1]} -> {"id", "nll"}, where a
+    row's ``nll`` is the mean over its T positions of minus the fp32
+    log-softmax of ``gpt2_forward``'s logits (under ``cfg``'s flags;
+    ``FUSED_FLAGS`` at GPT-2 small when None) at the next token."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_forward
+
+    cfg = cfg if cfg is not None else GPT2Config(**FUSED_FLAGS)
+    tokens = batch["tokens"].long()
+    logits = gpt2_forward(params, tokens[:, :-1], cfg)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    picked = logp.gather(-1, tokens[:, 1:, None])[..., 0]
+    return {"id": batch["id"], "nll": -picked.mean(-1)}
+
+
+def measure_batch_predict_gpt2(cfg=None, *, params=None, tokens=None,
+                               batch_size: int = 8, device=None) -> dict:
+    """Batch inference through the entry point a user calls:
+    ``BatchPredictor.from_checkpoint(Checkpoint.from_dict({"params":
+    params}), CudaPredictor, apply_fn=gpt2_score)`` scoring a dataset of
+    rows {"id", "tokens"} (``from_items`` over 8 blocks) at
+    ``batch_size``, on one scoring actor.
+
+    ``cfg``: GPT-2 small under ``FUSED_FLAGS`` when None. ``params``: a
+    tree of numpy arrays (``gpt2_init`` from seed 0, moved to the host,
+    when None). ``tokens``: [rows, seq_len + 1] integers (256 rows of
+    ``torch.randint`` from seed 2 on the device, moved to the host, when
+    None). The kernel counters are set to 0 just before ``predict`` and
+    read just after.
+
+    Returns {ids, nll (both in id order), rows, batches, wall_s (the whole
+    ``predict``: the actors, the predictor's build with its upload of the
+    parameters, the scoring), rows_s, tokens_s, ms_batch (wall_s over the
+    batches), launches, peak_memory_bytes, device}."""
+    import functools
+
+    from ray_tpu_torch import data
+    from ray_tpu_torch.models.convert import params_to_numpy
+    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
+    from ray_tpu_torch.train.batch_predictor import (BatchPredictor,
+                                                     CudaPredictor)
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+
+    device = resolve_device(device)
+    cfg = cfg if cfg is not None else GPT2Config(**FUSED_FLAGS)
+    gen = torch.Generator(device=device)
+    if params is None:
+        params = params_to_numpy(gpt2_init(gen.manual_seed(0), cfg,
+                                           device=device))
+    if tokens is None:
+        tokens = torch.randint(
+            0, cfg.vocab_size, (256, cfg.seq_len + 1), device=device,
+            generator=gen.manual_seed(2)).cpu().numpy()
+    rows, blocks = len(tokens), 8
+    ds = data.from_items([{"id": i, "tokens": t}
+                          for i, t in enumerate(tokens)], parallelism=blocks)
+    predictor = BatchPredictor.from_checkpoint(
+        Checkpoint.from_dict({"params": params}), CudaPredictor,
+        apply_fn=functools.partial(gpt2_score, cfg=cfg), device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = predictor.predict(ds, batch_size=batch_size, max_scoring_workers=1)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    ids, nll = [], []
+    for b in out.iter_batches(batch_size=rows, batch_format="numpy"):
+        ids.append(b["id"])
+        nll.append(b["nll"])
+    ids, nll = np.concatenate(ids), np.concatenate(nll)
+    order = np.argsort(ids, kind="stable")
+    n = max(1, min(blocks, rows))  # from_items' blocks
+    cuts = [round(i * rows / n) for i in range(n + 1)]
+    n_batches = sum(-(-(b - a) // batch_size) for a, b in zip(cuts, cuts[1:]))
+    return {
+        "ids": ids[order], "nll": nll[order], "rows": rows,
+        "batches": n_batches, "wall_s": wall, "rows_s": rows / wall,
+        "tokens_s": rows * cfg.seq_len / wall,
+        "ms_batch": wall / n_batches * 1000, "launches": launches,
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                              if device.type == "cuda" else None),
+        "device": device_name(device),
     }
 
 

@@ -265,7 +265,9 @@ def in_session() -> bool:
 
 def add_data_wait(seconds: float) -> None:
     """Accrue consumer data-wait seconds to the active session's current
-    step (a no-op outside a train session)."""
+    step (a no-op outside a train session). The dataset iterators
+    (``data/dataset.py``) call it through ``sys.modules`` under this
+    module's name."""
     s = getattr(_local, "session", None)
     if s is not None and seconds > 0:
         s._data_wait_s += seconds

@@ -242,7 +242,12 @@ class _CheckpointManager:
 
 
 def _shard_dataset(ds, n: int, equal: bool = True):
-    """Per-worker shards: datasets via split(); arrays/lists striped."""
+    """Per-worker shards: a ``ray_tpu_torch.data.Dataset`` through
+    ``Dataset.split(n, equal=True)`` (each rank ``count() // n`` rows, the
+    remainder dropped; a rank reads its shard with
+    ``session.get_dataset_shard(name).iter_device_batches(...)``); arrays
+    and lists striped (``ds[i::n]``); anything else handed to every
+    rank whole."""
     if ds is None:
         return [None] * n
     if hasattr(ds, "split"):

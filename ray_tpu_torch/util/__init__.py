@@ -3,4 +3,5 @@
 the serving engine metrics, tracing, failpoints and step anatomy; for the
 trainer the session's cost model (``xla_cost``), goodput, device
 telemetry, placement groups, scheduling strategies and the actor-backed
-queue."""
+queue; for the data library the actor pools (``actor_pool``) and the
+input pipeline's half of metrics and goodput."""

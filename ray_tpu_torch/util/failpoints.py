@@ -1,5 +1,6 @@
 """Deterministic failpoints: named fault-injection sites (the parts of
-``ray_tpu/util/failpoints.py`` the serving engine and its tests call).
+``ray_tpu/util/failpoints.py`` the serving engine, the data library's
+actor pools and their tests call).
 
 Code on a load-bearing path calls ``failpoints.hit("<site>")``, which is
 one dict check while nothing is armed. A test arms a site with a spec::
@@ -28,6 +29,8 @@ SITES = frozenset({
     # serve LLM engine: admission and the decode step
     "serve.llm.before_admit",
     "serve.llm.before_step",
+    # data library: every scale decision of an autoscaling actor pool
+    "data.pool.before_scale",
 })
 
 # site -> _Failpoint; ``hit`` reads it without a lock while it is empty.

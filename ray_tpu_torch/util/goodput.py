@@ -1,18 +1,24 @@
-"""Training goodput: per-step phases, step anatomy with MFU, and the
-trainer's downtime ledger (the parts of ``ray_tpu/util/goodput.py`` the
-train session, the trainer and the serving engine call).
+"""Training goodput and the input-pipeline plane: per-step phases, step
+anatomy with MFU, the trainer's downtime ledger, and the data library's
+stage, iterator, block-split and actor-pool observations (the parts of
+``ray_tpu/util/goodput.py`` the train session, the trainer, the serving
+engine and the data library call).
 
 Every observation is set straight into this process's registry
-(``util/metrics``): the local backend runs train workers as threads of
-this process, so its registry is the whole plane. The reference's ship
-buffer to a cluster's node agents, its dataset-stage and iterator
-families and its readers (``train_stats``, ``data_stats``) are left out.
+(``util/metrics``): the local backend runs train workers and data tasks
+as threads of this process, so its registry is the whole plane; on the
+cluster backend each worker process records into its own. The
+reference's ship buffer to a cluster's node agents and ``train_stats``
+are left out. ``data_stats`` and ``stall_fraction_from`` read the
+exposition back: the derived **stall fraction** (wait / (wait + user)
+over the iterator phase histograms) is the input pipeline's health
+number.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 from ray_tpu_torch.util import metrics as _metrics
 
@@ -25,6 +31,11 @@ STEP_PHASES = ("data_wait", "step", "report", "checkpoint_save",
 # compute = the synced device wall, sync = barrier skew; together they
 # partition the instrumented step's wall time.
 ANATOMY_PHASES = ("data_wait", "host", "compute", "sync")
+# Phases of one consumer-loop batch (the data iterator histogram's phase
+# tag values): wait = consumer starved for the next batch, user =
+# consumer's own time between batches, transfer = host->device dispatch
+# inside ``iter_device_batches``.
+ITER_PHASES = ("wait", "user", "transfer")
 _NODE = "local"
 
 
@@ -156,3 +167,138 @@ def retract_trial(trial: str) -> None:
         for tags in fam.series():
             if tags.get("trial") == str(trial):
                 fam.remove(tags=tags)
+
+
+# -- the input pipeline (the data library records these) --------------------
+
+
+def record_stage(stage: str, wall_s: float,
+                 blocks: Optional[List[Tuple[Optional[float], int, int]]]
+                 = None) -> None:
+    """One executed dataset stage: total wall seconds plus per-block
+    (duration_s, rows, bytes) samples; a duration of None (actor-pool
+    stages) observes the sizes only."""
+    tags = {"node_id": _NODE, "stage": str(stage)}
+    _metrics.DATA_STAGE_SECONDS.observe(float(wall_s), tags=tags)
+    for dur, rows, nbytes in blocks or ():
+        if dur is not None:
+            _metrics.DATA_BLOCK_SECONDS.observe(float(dur), tags=tags)
+        _metrics.DATA_BLOCK_ROWS.observe(float(rows), tags=tags)
+        _metrics.DATA_BLOCK_BYTES.observe(float(nbytes), tags=tags)
+
+
+def record_block_split(stage: str, n_splits: int) -> None:
+    """A stage task split one oversized output block into ``n_splits``
+    extra blocks."""
+    if n_splits > 0:
+        _metrics.DATA_BLOCK_SPLITS.inc(
+            float(n_splits), tags={"node_id": _NODE, "stage": str(stage)})
+
+
+def record_pool_size(pool: str, size: int, queue_depth: int) -> None:
+    """An autoscaling dataset actor pool changed size (or reports its
+    terminal size): the pool-size / queue-depth gauges."""
+    tags = {"node_id": _NODE, "pool": str(pool)}
+    _metrics.DATA_POOL_SIZE.set(float(size), tags=tags)
+    _metrics.DATA_POOL_QUEUE_DEPTH.set(float(queue_depth), tags=tags)
+
+
+def record_iter_batch(wait_s: Optional[float] = None,
+                      user_s: Optional[float] = None,
+                      transfer_s: Optional[float] = None,
+                      occupancy: Optional[int] = None) -> None:
+    """One consumer-loop batch: starvation wait vs consumer time (plus
+    host->device dispatch seconds and the prefetch-buffer occupancy the
+    consumer observed). Only the phases given are observed: an
+    unmeasured phase must not count a zero."""
+    for phase, sec in (("wait", wait_s), ("user", user_s),
+                       ("transfer", transfer_s)):
+        if sec is not None:
+            _metrics.DATA_ITER_SECONDS.observe(
+                max(0.0, float(sec)), tags={"node_id": _NODE, "phase": phase})
+    if occupancy is not None:
+        _metrics.DATA_PREFETCH_OCCUPANCY.observe(
+            float(occupancy), tags={"node_id": _NODE})
+
+
+def _dist_summary(dist: Optional[dict]) -> Optional[dict]:
+    if not dist:
+        return None
+    out = {"count": int(dist["count"]),
+           "sum_s": round(dist["sum"], 6),
+           "mean_ms": round(dist["sum"] / dist["count"] * 1e3, 3)}
+    for q, key in ((0.50, "p50_ms"), (0.99, "p99_ms")):
+        v = _metrics.quantile_from_buckets(dist, q)
+        out[key] = round(v * 1e3, 3) if v is not None else None
+    return out
+
+
+def stall_fraction_from(parsed: dict) -> Optional[float]:
+    """Metrics-derived stall fraction: wait seconds / (wait + user)
+    summed over the iterator histograms of ``parsed`` (a
+    ``parse_prometheus`` result, or a ``diff_parsed`` of two). None until
+    a consumer loop has recorded at least one batch."""
+    wait = _metrics.histogram_dist(parsed, "ray_tpu_data_iter_seconds",
+                                   phase="wait")
+    user = _metrics.histogram_dist(parsed, "ray_tpu_data_iter_seconds",
+                                   phase="user")
+    if not wait or not user:
+        return None
+    denom = wait["sum"] + user["sum"]
+    if denom <= 0:
+        return None
+    return wait["sum"] / denom
+
+
+def data_stats(parsed: Optional[dict] = None) -> dict:
+    """Input-pipeline rollup from this process's registry (or from
+    ``parsed``): per-stage wall and per-block distributions,
+    consumer-loop wait/user/transfer, prefetch occupancy, and the
+    derived stall fraction."""
+    if parsed is None:
+        parsed = _metrics.parse_prometheus(_metrics.prometheus_text())
+    stages: dict = {}
+    stage_names = set(_metrics.sum_counter(
+        parsed, "ray_tpu_data_stage_seconds_count", "stage"))
+    for name in sorted(n for n in stage_names if n):
+        entry: dict = {}
+        wall = _metrics.histogram_dist(
+            parsed, "ray_tpu_data_stage_seconds", stage=name)
+        if wall:
+            entry["executions"] = int(wall["count"])
+            entry["wall_ms"] = round(wall["sum"] * 1e3, 3)
+        blk = _metrics.histogram_dist(
+            parsed, "ray_tpu_data_block_seconds", stage=name)
+        if blk:
+            entry["blocks"] = int(blk["count"])
+            entry["block_seconds"] = _dist_summary(blk)
+        rows = _metrics.histogram_dist(
+            parsed, "ray_tpu_data_block_rows", stage=name)
+        if rows:
+            entry["rows_total"] = int(rows["sum"])
+        nbytes = _metrics.histogram_dist(
+            parsed, "ray_tpu_data_block_bytes", stage=name)
+        if nbytes:
+            entry["bytes_total"] = int(nbytes["sum"])
+            if wall and wall["sum"] > 0:
+                entry["bytes_per_s"] = round(nbytes["sum"] / wall["sum"])
+        stages[name] = entry
+    out: dict = {"stages": stages}
+    iterator: dict = {}
+    for phase in ITER_PHASES:
+        d = _metrics.histogram_dist(parsed, "ray_tpu_data_iter_seconds",
+                                    phase=phase)
+        if d:
+            iterator[phase] = _dist_summary(d)
+    occ = _metrics.histogram_dist(parsed, "ray_tpu_data_prefetch_occupancy")
+    if occ:
+        iterator["occupancy"] = {
+            "samples": int(occ["count"]),
+            "mean": round(occ["sum"] / occ["count"], 3),
+        }
+    if iterator:
+        out["iterator"] = iterator
+    sf = stall_fraction_from(parsed)
+    if sf is not None:
+        out["stall_fraction"] = round(sf, 4)
+    return out

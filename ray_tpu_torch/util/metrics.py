@@ -1,6 +1,6 @@
 """Counter / Gauge / Histogram, the Prometheus text exposition and its
 parser (the parts of ``ray_tpu/util/metrics.py`` the serving engine, the
-train session and trainer, and their tests call).
+train session and trainer, the data library, and their tests call).
 
 The registry is this process's own: nothing here ships to a cluster's
 ``/metrics`` plane. The metric families keep the JAX package's names, so
@@ -237,6 +237,74 @@ TRAIN_MFU_PERCENT = Gauge(
     "per-device peak; retracted when the trial stops",
     tag_keys=("node_id", "trial", "rank"),
 )
+# -- the data library's input-pipeline families (recorded through
+# util/goodput.py: dataset stages, consumer-loop stall accounting, dynamic
+# block splits, and the autoscaling actor pools' size and queue depth).
+DATA_STAGE_SECONDS = Histogram(
+    "ray_tpu_data_stage_seconds",
+    "Wall time of one executed dataset stage (driver-observed, whole "
+    "stage across its blocks)",
+    boundaries=[0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 15.0,
+                60.0, 300.0],
+    tag_keys=("node_id", "stage"),
+)
+DATA_BLOCK_SECONDS = Histogram(
+    "ray_tpu_data_block_seconds",
+    "Wall time of one block through one dataset stage (task-measured)",
+    boundaries=[0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0,
+                30.0],
+    tag_keys=("node_id", "stage"),
+)
+DATA_BLOCK_ROWS = Histogram(
+    "ray_tpu_data_block_rows",
+    "Rows per output block of a dataset stage (skew shows up here)",
+    boundaries=[1.0, 16.0, 64.0, 256.0, 1024.0, 4096.0, 16384.0,
+                65536.0, 262144.0, 1048576.0],
+    tag_keys=("node_id", "stage"),
+)
+DATA_BLOCK_BYTES = Histogram(
+    "ray_tpu_data_block_bytes",
+    "Bytes per output block of a dataset stage",
+    boundaries=[1e3, 1e4, 1e5, 1e6, 1e7, 1e8, 1e9, 1e10],
+    tag_keys=("node_id", "stage"),
+)
+DATA_ITER_SECONDS = Histogram(
+    "ray_tpu_data_iter_seconds",
+    "Consumer-loop time per batch by phase (wait=consumer starved for "
+    "the next batch, user=consumer's own time between batches, "
+    "transfer=host->device dispatch in iter_device_batches); the "
+    "derived stall fraction is wait.sum / (wait.sum + user.sum)",
+    boundaries=[0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0],
+    tag_keys=("node_id", "phase"),
+)
+DATA_PREFETCH_OCCUPANCY = Histogram(
+    "ray_tpu_data_prefetch_occupancy",
+    "Prefetch-buffer occupancy observed as the consumer takes each "
+    "block batch (0 = the producer never gets ahead: every batch "
+    "starves)",
+    boundaries=[0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0],
+    tag_keys=("node_id",),
+)
+DATA_BLOCK_SPLITS = Counter(
+    "ray_tpu_block_splits_total",
+    "Extra output blocks produced by dynamic block splitting (a stage "
+    "whose output exceeded target_block_size_bytes)",
+    tag_keys=("node_id", "stage"),
+)
+DATA_POOL_SIZE = Gauge(
+    "ray_tpu_data_pool_size",
+    "Live actors in an autoscaling dataset actor pool "
+    "(ActorPoolStrategy(min, max): grows on queue depth, shrinks on "
+    "idle)",
+    tag_keys=("node_id", "pool"),
+)
+DATA_POOL_QUEUE_DEPTH = Gauge(
+    "ray_tpu_data_pool_queue_depth",
+    "Blocks queued behind an autoscaling dataset actor pool (the "
+    "scale-up pressure signal, sampled at scale decisions)",
+    tag_keys=("node_id", "pool"),
+)
 TRACING_DROPPED_SPANS = Counter(
     "ray_tpu_tracing_dropped_spans_total",
     "Finished spans dropped by this process's bounded span buffer",
@@ -369,6 +437,14 @@ def quantile_from_buckets(dist: Optional[dict], q: float) -> Optional[float]:
             return prev_le + (le - prev_le) * frac
         prev_le, prev_cum = (0.0 if le == float("inf") else le), cum
     return last_finite
+
+
+def percentile(sorted_vals: Sequence[float], q: float) -> float:
+    """Nearest-rank percentile of an ascending-sorted non-empty
+    sequence."""
+    idx = min(len(sorted_vals) - 1,
+              max(0, int(round(q * (len(sorted_vals) - 1)))))
+    return sorted_vals[idx]
 
 
 def diff_parsed(before: dict, after: dict) -> dict:

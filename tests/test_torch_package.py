@@ -9,6 +9,7 @@ suite's conftest does).
 """
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -101,7 +102,43 @@ SLICE_MODULES = [
     "ray_tpu_torch.serve",
     "ray_tpu_torch.serve._observability",
     "ray_tpu_torch.serve.llm_engine",
+    "ray_tpu_torch._private.usage",
+    "ray_tpu_torch.data",
+    "ray_tpu_torch.data.block",
+    "ray_tpu_torch.data.dataset",
+    "ray_tpu_torch.data.dataset_pipeline",
+    "ray_tpu_torch.data.preprocessors",
+    "ray_tpu_torch.util.actor_pool",
+    "ray_tpu_torch.train._observability",
+    "ray_tpu_torch.train.batch_predictor",
+    "ray_tpu_torch.scripts.input_bench",
 ]
+
+
+def test_the_data_library_loads_neither_pyarrow_nor_pandas():
+    """The chip machine has neither: importing the data library, running a
+    plan with ``map_batches`` and feeding ``iter_device_batches`` load
+    neither (only the readers, writers and batch formats that need them
+    import them)."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import ray_tpu_torch\n"
+        "from ray_tpu_torch import data\n"
+        "from ray_tpu_torch.scripts.measure import as_tokens\n"
+        "ds = data.from_numpy(np.arange(64).reshape(16, 4), parallelism=4)\n"
+        "ds = ds.map_batches(as_tokens)\n"
+        "n = sum(1 for _ in ds.iter_device_batches(batch_size=4,\n"
+        "                                          device='cpu'))\n"
+        "assert n == 4, n\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('pyarrow', 'pandas'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "ok"
 
 
 FORBIDDEN = ("jax", "jaxlib", "ray_tpu", "msgpack", "cloudpickle")
@@ -198,6 +235,62 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         measure_serve("gpt2", "tiny")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_data_entry_points_raise_without_cuda(monkeypatch):
+    """The data library's device feed, the predictor and the batch
+    inference harness name no device and find no CUDA: they raise (at the
+    call, not at a first batch) rather than run on the CPU."""
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+    from ray_tpu_torch.scripts.measure import (gpt2_score,
+                                               measure_batch_predict_gpt2,
+                                               measure_trainer_gpt2)
+    from ray_tpu_torch.train.batch_predictor import CudaPredictor
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+
+    _no_cuda(monkeypatch)
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        ds = data.from_numpy(np.arange(8))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ds.iter_device_batches(batch_size=4)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            CudaPredictor(gpt2_score, {"w": np.ones(2)})
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            CudaPredictor.from_checkpoint(
+                Checkpoint.from_dict({"params": {"w": np.ones(2)}}),
+                apply_fn=gpt2_score)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            measure_batch_predict_gpt2()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            measure_trainer_gpt2(None, 1, dataset=ds)
+        batches = list(ds.iter_device_batches(batch_size=4, device="cpu"))
+        assert [b["data"].tolist() for b in batches] == [[0, 1, 2, 3],
+                                                         [4, 5, 6, 7]]
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_input_bench_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
+    """``python -m ray_tpu_torch.scripts.input_bench`` with no ``--device``
+    runs on ``cuda``: without CUDA it exits non-zero and prints no result
+    (no host run that could pass for the card's); so do its ``run`` and
+    ``run_pipeline`` given no device."""
+    from ray_tpu_torch.scripts import input_bench
+
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.input_bench"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr, out.stderr[-3000:]
+    assert out.stdout == ""
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        input_bench.run(blocks=2, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        input_bench.run_pipeline(n_blocks=2)
 
 
 def test_flash_requests_take_flash_on_cpu(monkeypatch):
@@ -900,6 +993,41 @@ def test_folded_ring_kernels_match_plain(cuda, sp):
         cos = torch.nn.functional.cosine_similarity(
             a.float().flatten(), b.float().flatten(), dim=0)
         assert float(cos) > 0.9999, (name, float(cos))
+
+
+@pytest.mark.gpu
+def test_iter_device_batches_on_cuda(cuda):
+    """The device feed on the card: every batch equals its host rows and
+    lies on the current CUDA device, int64, while the consumer's stream is
+    kept busy (each batch's copy runs on the copier's stream; the
+    consumer's stream waits on its event); a numpy ``dtype`` is cast on the
+    host; each copy counts one ``transfer`` sample."""
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+    from ray_tpu_torch.util import metrics
+
+    arr = np.arange(64 * 1025, dtype=np.int64).reshape(64, 1025)
+    ds = data.from_numpy(arr, parallelism=4)
+    before = metrics.parse_prometheus(metrics.prometheus_text())
+    busy = torch.randn(2048, 2048, device=cuda)
+    n = 0
+    for i, b in enumerate(ds.iter_device_batches(batch_size=8)):
+        for _ in range(4):
+            busy = torch.tanh(busy @ busy)  # the consumer's kernels queue up
+        x = b["data"] + 0  # read on the consumer's stream
+        assert x.device == torch.device("cuda", torch.cuda.current_device())
+        assert x.dtype == torch.int64
+        assert torch.equal(x.cpu(), torch.from_numpy(arr[8 * i:8 * i + 8]))
+        n += 1
+    assert n == 8
+    delta = metrics.diff_parsed(
+        before, metrics.parse_prometheus(metrics.prometheus_text()))
+    xfer = metrics.histogram_dist(delta, "ray_tpu_data_iter_seconds",
+                                  phase="transfer")
+    assert xfer is not None and xfer["count"] == 8
+    f32 = next(iter(ds.iter_device_batches(batch_size=8, dtype=np.float32)))
+    assert f32["data"].dtype == torch.float32
+    ray_tpu_torch.shutdown()
 
 
 @pytest.mark.gpu
