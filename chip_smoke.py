@@ -402,6 +402,36 @@ that fails:
    10 s of its disconnect the proxy holds no session of it and its actor
    is dead. Printed: a ``get`` through the proxy beside a direct
    driver's;
+17. Serve (after phase 16; ``--serve`` runs it alone), on a ``Cluster`` of
+   one node with the card, the controller, replicas and HTTP proxy in its
+   worker processes:
+   17a. ``LLMEngine`` as deployment ``llm``: phase 7's GPT-2 small engine
+   (seed 0, bf16, 32 slots, ring cache 1024, prefill lane 4 x 128),
+   ``ray_actor_options={"num_gpus": 0.5}``, route prefix "/llm"; phase 7's
+   64 prompts, 64 new tokens each, at once through ``handle.stream()``,
+   then over HTTP (chunked ndjson) through the node's proxy. Held: phase
+   7's greedy tokens on both lanes; each lane's mean active slots over its
+   decode steps above 1; ``/metrics/cluster`` carrying each of ``llm``'s
+   serve series once, those the phase moved under the node's id, the
+   replica gauge under one replica label. Printed: tok/s, TTFT p50/p99 (the client's first chunk)
+   and latency a request per lane beside phase 7's and 15c's, and
+   ``serve.stats()``'s phases and decode rollup for ``llm``;
+   17b. ``measure.GPT2Scorer`` as deployment ``score``
+   (``@serve.batch(max_batch_size=8)``, 8a's parameters through the store,
+   ``num_gpus=0.5``, "/score"): 8b's 256 rows POSTed one a request, 32 in
+   flight. Held: each NLL within 1e-3 of 8b's direct call; 25 / 12 / 12
+   ``ln_fwd`` / ``gelu_fwd`` / ``flash_fwd`` launches per formed batch in
+   the replica's worker, no other kernel; the federated
+   ``ray_tpu_serve_batch_size`` counting 256 rows over the batches that
+   formed. Printed: rows/s beside 8b's, the batch sizes, the worker's
+   peak device memory;
+   17c. a ``ClientProxyServer`` and a remote driver in a subprocess
+   (``--serve-client-driver``) streaming 8 of the prompts at once from
+   ``llm`` through ``ClientBackend.serve_stream``. Held: phase 7's tokens;
+   no CUDA context and no store segment in the client. Printed: its TTFT
+   beside 17a's handle lane;
+   then ``serve.shutdown()``. Held: within 10 s the head lists no live
+   ``Replica``, ``HTTPProxy`` or ``ServeController``;
 13. one JSON line of every TPU kernel of the JAX package, all ported, with
    its launches on its main path, over the mesh of 1, with the ring of
    one, through the trainer, through the cluster trainer's worker
@@ -411,7 +441,8 @@ that fails:
    two cards, a step a rank at tp=2, a task of 11a's and 11b's traced
    run, a call of phase 12's operated run, a batch of phase 15a's stream,
    a call of phase 15b's streamed split, a batch of phase 16a's task, of
-   16c's task through ``ray://`` and 16b's tasks (the flash kernels: GPT-2's,
+   16c's task through ``ray://`` and 16b's tasks, a batch that phase 17b's
+   ``@serve.batch`` formed (the flash kernels: GPT-2's,
    with Llama's and the MoE's beside them, and their launches and ms in
    phase 3b's rings);
 14. the last line, ``{"ok": true, "device": {...}}``.
@@ -450,6 +481,8 @@ reference a run on its cluster).
 GPT-2 run, 4b, 8a, 8b and phase 7's GPT-2 engine it is held against.
 ``python3 chip_smoke.py --envs`` runs phase 16 alone, after phase 4's
 GPT-2 run, 4b, 8a and 8b it is held against.
+``python3 chip_smoke.py --serve`` runs phase 17 alone, after phase 4's
+GPT-2 run, 4b, 8a, 8b and phase 7's GPT-2 engine it is held against.
 ``python3 chip_smoke.py --sp-ranks`` runs phase 5's three sp=2 two-rank
 runs alone, with phase 4's GPT-2 and Llama runs they are held against,
 on a machine with two or more cards; ``--tp-ranks`` the two tp=2 runs
@@ -649,6 +682,14 @@ ELASTIC_STEPS, ELASTIC_LIMIT_S = 14, 420
 # The serving phase: requests per engine and new tokens a request; the
 # fp32 check's prompts and tokens.
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 64, 64
+# Phase 17: the prompts 17c streams through ray://, the scoring requests
+# 17b keeps in flight, 17b's largest batch, the NLL tolerance to 8b's
+# direct call, Serve's actor classes (none may outlive serve.shutdown),
+# and the ray:// driver's limit.
+SERVE_CLIENT_PROMPTS, SERVE_SCORE_IN_FLIGHT, SERVE_SCORE_BATCH = 8, 32, 8
+SERVE_NLL_TOL = 1e-3
+SERVE_ACTORS = ("Replica", "HTTPProxy", "ServeController")
+SERVE_CLIENT_LIMIT_S = 300
 NAIVE_PROMPTS, NAIVE_TOKENS = 4, 8
 # The served (bf16) engine against its fp32 copy: the smallest per-prompt
 # cosine of the prefill and decode logits, and the largest relative error
@@ -4005,6 +4046,429 @@ def client_driver_main(address: str, working_dir: str, params_path: str,
     return 0
 
 
+# -- phase 17 ------------------------------------------------------------------
+
+
+def _handle_stream(handle, prompt, t0: float) -> dict:
+    """One ``handle.stream`` of SERVE_NEW_TOKENS tokens: its tokens, chunks,
+    and the first chunk's and the last's seconds after ``t0`` as this
+    process read them."""
+    out = {"tokens": [], "chunks": 0, "ttft_s": None}
+    for chunk in handle.stream(list(prompt), SERVE_NEW_TOKENS):
+        if out["ttft_s"] is None:
+            out["ttft_s"] = time.perf_counter() - t0
+        out["tokens"].extend(chunk)
+        out["chunks"] += 1
+    out["latency_s"] = time.perf_counter() - t0
+    return out
+
+
+def _run_lane(fn, prompts) -> dict:
+    """Every prompt at once, each on a thread of its own calling ``fn(prompt,
+    t0)``; returns the results in prompt order, the wall seconds, and the
+    TTFT and latency percentiles in ms."""
+    import threading
+
+    import numpy as np
+
+    results: list = [None] * len(prompts)
+    errors: list = []
+
+    def one(i):
+        try:
+            results[i] = fn(prompts[i], t0)
+        except BaseException as e:  # noqa: BLE001 -- held by the caller
+            errors.append(f"{i}: {e!r}")
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    require(not errors and all(r is not None for r in results),
+            f"a stream failed: {errors[:3]}")
+    ttft = [r["ttft_s"] * 1e3 for r in results if r["ttft_s"] is not None]
+    lat = [r["latency_s"] * 1e3 for r in results]
+    n_tok = sum(len(r["tokens"]) for r in results)
+    return {"results": results, "wall_s": wall, "tok_s": n_tok / wall,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p99": float(np.percentile(ttft, 99)),
+            "latency_ms_p50": float(np.percentile(lat, 50)),
+            "latency_ms_p99": float(np.percentile(lat, 99))}
+
+
+def _llm_series(obs, text: str) -> dict:
+    """{(family, labels): value} of deployment ``llm``'s serve series in a
+    scrape."""
+    return {(fam, lab): v
+            for fam, series in obs.parse_prometheus(text).items()
+            if fam.startswith("ray_tpu_serve_")
+            for lab, v in series.items()
+            if dict(lab).get("deployment") == "llm"}
+
+
+def _occupancy(before: dict, after: dict) -> float:
+    """Mean active slots over the decode steps between two ``llm_stats``."""
+    steps = after["steps"] - before["steps"]
+    return (after["occupancy_sum"] - before["occupancy_sum"]) / max(1, steps)
+
+
+def serve_deploy_phase(torch, cfg, serving, predict, params, smi,
+                       async_actor=None):
+    """Phase 17: Serve on a ``Cluster`` of one node with the card
+    (``num_gpus=1``), its controller, replicas and HTTP proxy worker
+    processes.
+
+    17a. ``LLMEngine`` as deployment ``llm`` (phase 7's GPT-2 small engine:
+    seed 0, bf16, 32 slots, ring cache 1024, prefill lane 4 x 128;
+    ``num_gpus=0.5``, route prefix "/llm"); phase 7's SERVE_REQUESTS
+    prompts, SERVE_NEW_TOKENS new tokens each, sent at once through
+    ``handle.stream()``, then over HTTP (chunked ndjson) through the
+    node's proxy. Held: every request's tokens equal phase 7's greedy
+    tokens (``serving``) on both lanes; each lane's mean active slots over
+    its decode steps above 1 (so at least 2 at some step); every HTTP
+    stream 200, chunked, ending in the done line; the cluster's scrape
+    carries each of ``llm``'s serve series once, the series this phase
+    moved all under the node's id (this process's registry is also its
+    in-process agents', so the scrape holds, unmoved, what earlier
+    phases' engines recorded under the engine's default name ``llm``),
+    and the replica gauge under one replica label. Printed: tok/s,
+    TTFT p50/p99 (the client's first chunk) and latency a request for each
+    lane beside phase 7's and 15c's (``async_actor``), and
+    ``serve.stats()``'s phases and decode rollup for ``llm``.
+    17b. ``measure.GPT2Scorer`` as deployment ``score`` (8a's parameters,
+    ``params``, put in the store and read by the replica, which scores
+    one warm-up batch in its constructor;
+    ``@serve.batch(max_batch_size=8)``, ``num_gpus=0.5``, "/score"): 8b's
+    PREDICT_ROWS rows POSTed one a request, SERVE_SCORE_IN_FLIGHT in
+    flight. Held: every answer 200 with its id; each NLL within
+    SERVE_NLL_TOL of 8b's direct call (``predict``); every formed batch
+    launched ``ln_fwd``, ``gelu_fwd`` and ``flash_fwd`` 25, 12 and 12
+    times in the replica's worker and nothing else; the federated
+    ``ray_tpu_serve_batch_size`` counting PREDICT_ROWS rows over the
+    batches the replica formed. Printed: rows/s beside 8b's, the batch
+    sizes, the worker's peak device memory.
+    17c. a ``ClientProxyServer`` and ``chip_smoke.py
+    --serve-client-driver`` in a subprocess streaming
+    SERVE_CLIENT_PROMPTS of the prompts at once from ``llm`` through
+    ``ray://`` (``ClientBackend.serve_stream``). Held: phase 7's tokens;
+    no CUDA context and no store segment in the client. Printed: its TTFT
+    beside 17a's handle lane.
+    Then ``serve.shutdown()``. Held: within 10 s the head lists no live
+    actor of SERVE_ACTORS. Returns the report entry."""
+    import gc
+    from collections import Counter
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve, state
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.scripts.measure import (SERVE_ENGINES, GPT2Scorer,
+                                               http_post_json,
+                                               http_stream_tokens,
+                                               serve_prompts)
+    from ray_tpu_torch.serve import _observability as obs
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+    from ray_tpu_torch.util.client import ClientProxyServer
+
+    ref7 = serving["gpt2"]
+    prompts = serve_prompts(SERVE_REQUESTS, cfg.vocab_size,
+                            SERVE_ENGINES["gpt2"]["max_prompt_len"])
+    want_tokens = ref7["tokens_out"]
+    rows = predict_tokens(torch, cfg)
+    want_nll = np.asarray(predict["nll"], dtype=np.float32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ray_tpu_torch.shutdown()  # the local runtime of the phases before
+    cluster = Cluster()
+    proxy = None
+    out: dict = {}
+    t_phase = time.perf_counter()
+    try:
+        cluster.add_node(num_gpus=1, store_capacity=STREAM_STORE_BYTES)
+        cluster.wait_for_nodes()
+        node_id = cluster.nodes[0].node_id
+        ray_tpu_torch.init(address=cluster.address, log_to_driver=False)
+
+        # 17a: the engine as a deployment, through the handle and HTTP.
+        t0 = time.perf_counter()
+        llm = serve.deployment(name="llm", route_prefix="/llm",
+                               ray_actor_options={"num_gpus": 0.5})(
+                                   LLMEngine)
+        handle = serve.run(llm.bind(
+            model="gpt2", preset="small", seed=0,
+            max_new_tokens=SERVE_NEW_TOKENS, max_new_cap=SERVE_NEW_TOKENS,
+            **SERVE_ENGINES["gpt2"]))
+        deploy_s = time.perf_counter() - t0
+        port = serve.start_http_proxies()[node_id]
+        # This process's registry is also its in-process agents': what an
+        # engine of an earlier phase recorded here under the engine's
+        # default name "llm" (phase 7's in this process, node "local";
+        # 11b's and 15c's on the nodes of their clusters) is in the scrape
+        # too, and must not move.
+        llm_before = _llm_series(obs, obs.metrics_text())
+        stats = [ray_tpu_torch.get(handle.llm_stats.remote(), timeout=60)]
+        lanes = {"handle": _run_lane(
+            lambda p, t: _handle_stream(handle, p, t), prompts)}
+        stats.append(ray_tpu_torch.get(handle.llm_stats.remote(),
+                                       timeout=60))
+        lanes["http"] = _run_lane(lambda p, t: http_stream_tokens(
+            port, "/llm", {"tokens": p, "max_tokens": SERVE_NEW_TOKENS}, t),
+            prompts)
+        stats.append(ray_tpu_torch.get(handle.llm_stats.remote(),
+                                       timeout=60))
+        occupancy = {lane: _occupancy(stats[i], stats[i + 1])
+                     for i, lane in enumerate(("handle", "http"))}
+        equal = {lane: [r["tokens"] for r in lanes[lane]["results"]]
+                 == want_tokens for lane in lanes}
+        def http_fault(r):
+            headers = {k.lower(): v for k, v in r["headers"]}
+            return (r["status"] != 200 or r["done"] != {"done": True}
+                    or headers.get("transfer-encoding") != "chunked")
+
+        http_bad = [(i, {k: r[k] for k in ("status", "done", "headers")})
+                    for i, r in enumerate(lanes["http"]["results"])
+                    if http_fault(r)]
+        want_decode = 2 * SERVE_REQUESTS * SERVE_NEW_TOKENS
+
+        def decode_tokens():
+            return obs.decode_stats(obs.parse_prometheus(
+                obs.metrics_text()), "llm").get("tokens", 0)
+
+        _wait_until(lambda: decode_tokens() >= want_decode, 10.0)
+        text = obs.metrics_text()
+        parsed = obs.parse_prometheus(text)
+        series = [ln.rsplit(" ", 1)[0] for ln in text.splitlines()
+                  if ln.startswith("ray_tpu_serve_")
+                  and 'deployment="llm"' in ln]
+        families = sorted({ln.split("{")[0] for ln in series})
+        moved = {k for k, v in _llm_series(obs, text).items()
+                 if llm_before.get(k) != v}
+        nodes = {dict(lab).get("node_id") for _, lab in moved}
+        replicas = {dict(lab)["replica"] for lab in
+                    parsed.get("ray_tpu_serve_replica_ongoing", {})
+                    if dict(lab).get("deployment") == "llm"
+                    and dict(lab).get("node_id") == node_id}
+        st = serve.stats()["deployments"]["llm"]
+        c15 = (f"15c's {async_actor['tok_s']:.1f} tok/s, latency p50 "
+               f"{async_actor['latency_ms_p50']:.1f} p99 "
+               f"{async_actor['latency_ms_p99']:.1f} ms" if async_actor
+               else "15c not run in this call")
+        for lane, r in lanes.items():
+            print(f"17a LLMEngine as a Serve deployment, {lane} lane "
+                  f"(GPT-2 small bf16, {SERVE_REQUESTS} requests x "
+                  f"{SERVE_NEW_TOKENS} tokens at once, replica num_gpus=0.5) "
+                  f"[{smi}]: {r['tok_s']:.1f} tok/s over the run "
+                  f"({r['wall_s']:.3f} s); TTFT (the client's first chunk) "
+                  f"p50 {r['ttft_ms_p50']:.1f} ms p99 {r['ttft_ms_p99']:.1f} "
+                  f"ms; latency a request p50 {r['latency_ms_p50']:.1f} ms "
+                  f"p99 {r['latency_ms_p99']:.1f} ms; mean active slots "
+                  f"{occupancy[lane]:.2f}; tokens equal phase 7's "
+                  f"{equal[lane]} -- phase 7's in-process "
+                  f"{ref7['serve_tok_s']:.1f} tok/s, TTFT p50 "
+                  f"{ref7['ttft_ms_p50']:.1f} p99 {ref7['ttft_ms_p99']:.1f} "
+                  f"ms, latency p50 {ref7['latency_ms_p50']:.1f} p99 "
+                  f"{ref7['latency_ms_p99']:.1f} ms; {c15}")
+        print(f"17a [{smi}]: deployed in {deploy_s:.2f} s (replica worker, "
+              f"CUDA context, engine and its graphs); serve.stats() llm: "
+              f"phases {st.get('phases')}, requests {st.get('requests')}, "
+              f"decode {st.get('decode')}; the scrape's llm families "
+              f"{families}; the series this phase moved on nodes "
+              f"{sorted(nodes)} ({len(moved)} of them; earlier phases' "
+              f"engines left {len(llm_before)} unmoved); replica labels "
+              f"{sorted(replicas)}")
+        for lane in lanes:
+            require(equal[lane], f"17a: the {lane} lane's tokens differ "
+                    f"from phase 7's")
+            require(occupancy[lane] > 1.0, f"17a: the {lane} lane's mean "
+                    f"active slots {occupancy[lane]:.2f}: no step held 2")
+        require(not http_bad, f"17a: {len(http_bad)} HTTP streams answered "
+                f"otherwise than 200, chunked, done: {http_bad[:2]}")
+        require(decode_tokens() >= want_decode, f"17a: the scrape counts "
+                f"{decode_tokens()} decode tokens of {want_decode}")
+        require(len(series) == len(set(series)),
+                "17a: a serve series of llm appears twice in the scrape")
+        require(nodes == {node_id}, f"17a: phase 17 moved llm's series "
+                f"on nodes {nodes}, not only the replica's {node_id}")
+        require(len(replicas) == 1, f"17a: replica labels {replicas}")
+        out["llm"] = {
+            "deploy_s": deploy_s, "occupancy": occupancy,
+            "tokens_equal_phase7": equal, "families": families,
+            **{lane: {k: v for k, v in r.items() if k != "results"}
+               for lane, r in lanes.items()},
+            "stats": {k: st.get(k) for k in ("phases", "requests",
+                                             "decode")}}
+
+        # 17b: the batched scorer, one row a request over HTTP.
+        pref = ray_tpu_torch.put(params)
+        t0 = time.perf_counter()
+        scorer = serve.deployment(
+            name="score", route_prefix="/score",
+            max_concurrent_queries=SERVE_SCORE_IN_FLIGHT,
+            ray_actor_options={"num_gpus": 0.5})(GPT2Scorer)
+        shandle = serve.run(scorer.bind(pref))
+        score_deploy_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_SCORE_IN_FLIGHT) as ex:
+            answers = list(ex.map(
+                lambda i: http_post_json(port, "/score", {
+                    "id": i, "tokens": rows[i].tolist()}),
+                range(len(rows))))
+        wall = time.perf_counter() - t1
+        sst = ray_tpu_torch.get(shandle.stats.remote(), timeout=60)
+        del pref
+        bad = [(i, s, b) for i, (s, b) in enumerate(answers)
+               if s != 200 or b.get("id") != i]
+        nll = np.asarray([b["nll"] if s == 200 else np.nan
+                          for s, b in answers], dtype=np.float32)
+        err = float(np.max(np.abs(nll - want_nll)))
+
+        def batch_hist():
+            return obs.histogram_dist(obs.parse_prometheus(
+                obs.metrics_text()), "ray_tpu_serve_batch_size",
+                deployment="score") or {}
+
+        _wait_until(lambda: batch_hist().get("sum") == len(rows), 10.0)
+        hist = batch_hist()
+        sizes = sst["batch_sizes"]
+        print(f"17b GPT2Scorer as a Serve deployment (GPT-2 "
+              f"{cfg.n_params / 1e6:.0f}M, 8a's parameters, "
+              f"@serve.batch(max_batch_size={SERVE_SCORE_BATCH}), "
+              f"num_gpus=0.5), {len(rows)} rows x {cfg.seq_len} tokens "
+              f"POSTed one a request, {SERVE_SCORE_IN_FLIGHT} in flight "
+              f"[{smi}]: {len(rows) / wall:.1f} rows/s ({wall:.3f} s) vs "
+              f"8b's {predict['rows_s']:.1f}; deployed in "
+              f"{score_deploy_s:.2f} s (the replica's worker, torch, the "
+              f"parameters from the store onto the card, one warm-up "
+              f"batch); {len(sizes)} batches formed, sizes "
+              f"{dict(sorted(Counter(sizes).items()))}; NLL max "
+              f"abs diff to 8b's direct call {err:.3e}; launches of the "
+              f"first batch {sst['launches'][0] if sst['launches'] else {}};"
+              f" the scrape's batch-size histogram: {hist.get('count')} "
+              f"batches, {hist.get('sum')} rows; the worker's peak device "
+              f"memory {sst['peak_memory_bytes'] / 2**30:.2f} GiB")
+        require(not bad, f"17b: {len(bad)} answers not 200 with their id: "
+                f"{bad[:2]}")
+        require(err <= SERVE_NLL_TOL, f"17b: NLL {err:.3e} from 8b's")
+        require(sum(sizes) == len(rows) and max(sizes) <= SERVE_SCORE_BATCH,
+                f"17b: batch sizes {sizes}")
+        for i, launched in enumerate(sst["launches"]):
+            require(launched == FORWARD_LAUNCHES, f"17b: batch {i} "
+                    f"launched {launched}, expected {FORWARD_LAUNCHES}")
+        require(hist.get("sum") == len(rows)
+                and hist.get("count") == len(sizes),
+                f"17b: the scrape's batch-size histogram {hist}, the "
+                f"replica formed {len(sizes)} batches of {sum(sizes)} rows")
+        out["score"] = {
+            "deploy_s": score_deploy_s, "wall_s": wall,
+            "rows_s": len(rows) / wall, "nll_max_abs_diff": err,
+            "batch_sizes": sizes, "batches": len(sizes),
+            "launches_per_batch": sst["launches"][0],
+            "peak_memory_bytes": sst["peak_memory_bytes"]}
+
+        # 17c: the engine streamed through ray://.
+        proxy = ClientProxyServer(cluster.address)
+        OUT.mkdir(exist_ok=True)
+        prompts_path = OUT / "serve_client_prompts.json"
+        result_path = OUT / "serve_client.json"
+        prompts_path.write_text(json.dumps(prompts[:SERVE_CLIENT_PROMPTS]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, __file__, "--serve-client-driver",
+             proxy.address, str(prompts_path), str(result_path)],
+            capture_output=True, text=True, timeout=SERVE_CLIENT_LIMIT_S)
+        client_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"17c: the client driver exited "
+                f"{proc.returncode}: {proc.stderr[-2000:]}")
+        res = json.loads(result_path.read_text())
+        c_equal = res["tokens"] == want_tokens[:SERVE_CLIENT_PROMPTS]
+        ttft = np.asarray(res["ttft_s"]) * 1e3
+        print(f"17c ray:// driver in a subprocess streaming "
+              f"{SERVE_CLIENT_PROMPTS} prompts at once from llm through "
+              f"ClientBackend.serve_stream [{smi}]: {client_s:.2f} s for "
+              f"the process; TTFT through the proxy p50 "
+              f"{np.percentile(ttft, 50):.1f} ms p99 "
+              f"{np.percentile(ttft, 99):.1f} ms vs 17a's handle lane p50 "
+              f"{lanes['handle']['ttft_ms_p50']:.1f} ms (64 at once); the "
+              f"streams' wall {res['wall_s']:.3f} s; tokens equal phase "
+              f"7's {c_equal}; client CUDA initialised "
+              f"{res['cuda_initialized']}, rtorch segment mapped "
+              f"{res['maps_store']}, backend {res['backend']}")
+        require(c_equal, "17c: the tokens through ray:// differ from "
+                "phase 7's")
+        require(res["backend"] == "ClientBackend",
+                f"17c: the client ran on {res['backend']}")
+        require(not res["cuda_initialized"] and not res["maps_store"],
+                f"17c: the client initialised CUDA {res['cuda_initialized']}"
+                f", mapped a segment {res['maps_store']}")
+        out["client"] = {"s": client_s, "wall_s": res["wall_s"],
+                         "ttft_ms_p50": float(np.percentile(ttft, 50)),
+                         "ttft_ms_p99": float(np.percentile(ttft, 99)),
+                         "tokens_equal_phase7": c_equal}
+
+        # Teardown: nothing of Serve outlives serve.shutdown().
+        t0 = time.perf_counter()
+        serve.shutdown()
+
+        def live():
+            return [(a["class_name"], a["actor_id"][:12])
+                    for a in state.list_actors()
+                    if a["class_name"] in SERVE_ACTORS
+                    and a["state"] != "DEAD"]
+
+        gone = _wait_until(lambda: not live(), 10.0)
+        print(f"17 teardown [{smi}]: serve.shutdown() and no live Serve "
+              f"actor in {time.perf_counter() - t0:.2f} s ({gone}); phase "
+              f"17 {time.perf_counter() - t_phase:.1f} s")
+        require(gone, f"17: live after serve.shutdown(): {live()}")
+        out["phase_s"] = time.perf_counter() - t_phase
+    finally:
+        if proxy is not None:
+            proxy.shutdown()
+        ray_tpu_torch.shutdown()
+        cluster.shutdown()
+    return out
+
+
+def serve_client_driver_main(address: str, prompts_path: str,
+                             result_path: str) -> int:
+    """``--serve-client-driver``: phase 17c's remote driver. Connects with
+    ``ray_tpu_torch.init("ray://" + address)``, streams each prompt of
+    ``prompts_path`` (a JSON list) from deployment ``llm`` at once, each
+    on a thread (``serve.get_deployment_handle("llm").stream``), and
+    writes to ``result_path`` the tokens, each stream's first chunk and
+    last (seconds after the start), whether this process initialised CUDA
+    or mapped an ``rtorch_*`` segment, and its backend's class."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import worker as worker_mod
+
+    prompts = json.loads(Path(prompts_path).read_text())
+    ray_tpu_torch.init(address=f"ray://{address}")
+    try:
+        handle = serve.get_deployment_handle("llm")
+        lane = _run_lane(lambda p, t: _handle_stream(handle, p, t), prompts)
+        torch = sys.modules.get("torch")
+        result = {
+            "tokens": [r["tokens"] for r in lane["results"]],
+            "ttft_s": [r["ttft_s"] for r in lane["results"]],
+            "latency_s": [r["latency_s"] for r in lane["results"]],
+            "wall_s": lane["wall_s"],
+            "cuda_initialized": bool(torch is not None
+                                     and torch.cuda.is_initialized()),
+            "maps_store": _maps_rtorch_segment(),
+            "backend": type(worker_mod.backend()).__name__}
+    finally:
+        ray_tpu_torch.shutdown()
+    Path(result_path).write_text(json.dumps(result))
+    return 0
+
+
 def _to_cuda(torch, tree):
     if isinstance(tree, dict):
         return {k: _to_cuda(torch, v) for k, v in tree.items()}
@@ -4590,6 +5054,12 @@ def main() -> int:
     # (16c), on 8a's parameters and 8b's rows.
     report["envs"] = envs_phase(torch, cfg, report["batch_predict"], trained,
                                 smi)
+
+    # Phase 17: Serve on the card -- phase 7's engine as a deployment
+    # (17a), 8b's scoring through @serve.batch (17b), ray:// (17c).
+    report["serve"] = serve_deploy_phase(
+        torch, cfg, report["serving"], report["batch_predict"], trained, smi,
+        report["streams"]["async_actor"])
     del trained
 
     # Phase 13: the kernels line. Each kernel's launches are those of the
@@ -4623,6 +5093,8 @@ def main() -> int:
                 "launches_per_batch"].get(kname, 0),
             "launches_envs_py_modules": report["envs"]["py_modules"][
                 "launches"].get(kname, 0),
+            "launches_serve_score_per_batch": report["serve"]["score"][
+                "launches_per_batch"].get(kname, 0),
             "launches_streamed_split_per_call": (
                 report["streams"]["split"]["launches"][kname]
                 / (WARMUP + STEPS + 1)),
@@ -4752,6 +5224,22 @@ def envs_main() -> int:
     out = envs_phase(torch, cfg, predict, trained, smi)
     print(f"phase 16: {time.perf_counter() - t0:.1f} s [{smi}]")
     (OUT / "chip_smoke_envs.json").write_text(
+        json.dumps(out, indent=1, default=str))
+    return 0
+
+
+def serve_main() -> int:
+    """``--serve``: phase 17 alone, after the runs it is held against
+    (``_ingest_and_predict``'s, and phase 7's GPT-2 engine)."""
+    import torch
+
+    smi, cfg, counters, _ingest, trained, predict = _ingest_and_predict(
+        torch, "--serve")
+    serving = serve_phase(torch, counters, smi, models=("gpt2",))
+    t0 = time.perf_counter()
+    out = serve_deploy_phase(torch, cfg, serving, predict, trained, smi)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s [{smi}]")
+    (OUT / "chip_smoke_serve.json").write_text(
         json.dumps(out, indent=1, default=str))
     return 0
 
@@ -5040,6 +5528,10 @@ if __name__ == "__main__":
         sys.exit(client_driver_main(*sys.argv[2:7]))
     if sys.argv[1:2] == ["--streams"]:
         sys.exit(streams_main())
+    if sys.argv[1:2] == ["--serve"]:
+        sys.exit(serve_main())
+    if sys.argv[1:2] == ["--serve-client-driver"]:
+        sys.exit(serve_client_driver_main(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--tp-ranks"]:
         sys.exit(tp_ranks_main())
     if sys.argv[1:2] == ["--pp-ranks"]:

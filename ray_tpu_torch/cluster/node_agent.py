@@ -100,8 +100,13 @@ channel as ``{node_id, pid, errors: [{task_id, name, error}]}``.
     failed" (and its actor's creation). The agent pins
     ``ray_tpu_torch``'s package root on every worker's path.
 
-Left out (ROADMAP A18, A4c.6d): serve observations shipped over worker
-events and C++ workers.
+A worker's Serve observations ride its event batch and replay into this
+agent's registry (``serve/_observability.py:apply_events``, reference
+:790-800); the gauges a dead worker's events made are retracted with its
+other series (reference :2170-2181), so ``/metrics/cluster`` shows a
+replica's series once, and never after it died.
+
+Left out (ROADMAP A4c.6d): C++ workers.
 """
 
 from __future__ import annotations
@@ -312,6 +317,9 @@ class NodeAgent:
         # when it dies); the device gauge children exported; the store's
         # exported eviction count and whether its gauges exist.
         self._train_gauges: dict[str, set] = {}
+        # worker_id -> the Serve gauge keys its events made (the replica's
+        # ongoing gauge, a router's queue depth, the reconcile gauge).
+        self._serve_gauges: dict[str, set] = {}
         self._exported_device: set = set()
         self._evictions_exported = 0
         self._store_gauges_exported = False
@@ -821,20 +829,30 @@ class NodeAgent:
 
     def rpc_worker_events(self, worker_id, pid, task_events,  # idempotent
                           log_lines=None, spans=None, device=None,
-                          train=None, seq=None, dropped=None):
+                          train=None, seq=None, dropped=None,
+                          serve=None):
         """A worker's batched report: its task records (timings, outcome,
         per-phase wall ns), its captured stdout/stderr lines (forwarded to
         the head's log ring and ``LOGS`` channel), finished spans
         (forwarded to the head's trace store with this node's id, for its
         clock offset) with the span drop count, an optional device
-        snapshot, and training goodput observations (replayed into THIS
-        registry, the one the head federates; a worker's own is never
-        scraped).
+        snapshot, and training goodput and Serve observations (replayed
+        into THIS registry, the one the head federates; a worker's own is
+        never scraped).
 
         Idempotent per (worker, pid, seq): a batch resent after a lost
         reply is absorbed here, so no observation counts twice."""
         if self._is_duplicate_event_batch(worker_id, pid, seq):
             return True
+        if serve:
+            from ray_tpu_torch.serve import _observability as _serve_obs
+
+            keys = _serve_obs.apply_events(serve, node_id=self.node_id,
+                                           worker=worker_id)
+            if keys:
+                with self._lock:
+                    self._serve_gauges.setdefault(worker_id,
+                                                  set()).update(keys)
         if train:
             from ray_tpu_torch.util import goodput as _goodput
 
@@ -2472,9 +2490,13 @@ class NodeAgent:
                     del table[wid]
             dead_train = [wid for wid in self._train_gauges
                           if wid not in live]
+            dead_serve = [wid for wid in self._serve_gauges
+                          if wid not in live]
             self._worker_stats = stats
         for wid in dead_train:
             self._retract_train_series(wid)
+        for wid in dead_serve:
+            self._retract_serve_series(wid)
         self._export_device_gauges()
         self._export_store_gauges_locked()
         return list(stats.values())
@@ -2523,6 +2545,16 @@ class NodeAgent:
             from ray_tpu_torch.util import goodput as _goodput
 
             _goodput.retract_gauges(keys, self.node_id)
+
+    def _retract_serve_series(self, wid: str) -> None:
+        """Drop the Serve gauge children a dead worker's events made (a
+        dead replica must vanish from the federated scrape)."""
+        with self._lock:
+            keys = self._serve_gauges.pop(wid, None)
+        if keys:
+            from ray_tpu_torch.serve import _observability as _serve_obs
+
+            _serve_obs.retract_gauges(keys, self.node_id)
 
     def _export_store_gauges(self) -> None:
         with self._telemetry_lock:
@@ -2856,6 +2888,8 @@ class NodeAgent:
             _metrics.AGENT_METRICS_RENDER_SECONDS.remove(tags=tags)
             for wid in list(self._train_gauges):
                 self._retract_train_series(wid)
+            for wid in list(self._serve_gauges):
+                self._retract_serve_series(wid)
         with self._lock:
             workers = list(self._workers.values())
         for w in workers:

@@ -56,7 +56,11 @@ the actor before its first coroutine runs. The tee keeps a coroutine's
 partial line per asyncio task, so coroutines printing across an await
 splice no line.
 
-Left out (ROADMAP A18): serve observations in the event batch.
+Serve observations (``serve/_observability.py``: request phases,
+statuses, sheds, batch sizes, replica and router gauges, the engine's
+decode series) ride the event batch once something in the process imported
+Serve (reference :246-305), and go back to their buffer when the agent
+never took the batch they rode.
 """
 
 from __future__ import annotations
@@ -285,7 +289,7 @@ class WorkerHandler:
 
     def flush_events(self) -> None:
         """Ship task records, captured log lines, spans (with the span
-        buffer's drop count), goodput observations and, about once a
+        buffer's drop count), goodput and Serve observations and, about once a
         second while CUDA is up here, a device snapshot to the agent:
         every 0.25 s from the flusher, and at the end of a traced call
         before its result is stored (so its spans reach the head before
@@ -293,11 +297,12 @@ class WorkerHandler:
         batch whose reply was lost is resent under its ORIGINAL sequence
         number (the agent absorbs the replay, so a step is counted once);
         at most 8 wait, an evicted one's spans counted as dropped and its
-        goodput observations put back in their buffer. The agent
+        goodput and Serve observations put back in their buffers. The agent
         watchdog decides when the agent is gone."""
         from ray_tpu_torch.util import device_telemetry, tracing
 
         go = sys.modules.get("ray_tpu_torch.util.goodput")
+        so = sys.modules.get("ray_tpu_torch.serve._observability")
         with self._ship_lock:
             with self._ev_lock:
                 # Drained in place: the tee streams hold these lists.
@@ -308,32 +313,36 @@ class WorkerHandler:
             spans = tracing.drain() if tracing.is_enabled() else []
             span_drops = tracing.drain_dropped()
             train = go.drain_events() if go is not None else []
+            serve = so.drain_events() if so is not None else []
             device = None
             now = time.monotonic()
             if device_telemetry.cuda_initialized() \
                     and now - self._last_dev_ship >= 1.0:
                 device = device_telemetry.snapshot()
                 self._last_dev_ship = now
-            if events or lines or spans or span_drops or train \
+            if events or lines or spans or span_drops or train or serve \
                     or device is not None:
                 self._ship_seq += 1
                 self._unacked.append((self._ship_seq, events, lines, spans,
                                       device, train or None,
-                                      span_drops or None))
+                                      span_drops or None, serve or None))
             while len(self._unacked) > 8:
-                _, _, _, lost, _, lost_train, drops = \
+                _, _, _, lost, _, lost_train, drops, lost_serve = \
                     self._unacked.popleft()
                 tracing.requeue_dropped((drops or 0) + len(lost))
                 if lost_train and go is not None:
                     go.requeue_events(lost_train)
+                if lost_serve and so is not None:
+                    so.requeue_events(lost_serve)
             while self._unacked:
                 (seq, b_events, b_lines, b_spans, b_device, b_train,
-                 b_drops) = self._unacked[0]
+                 b_drops, b_serve) = self._unacked[0]
                 with tracing.suppressed():  # the upload records no spans
                     self.agent.call(
                         "worker_events", self.worker_id, os.getpid(),
                         b_events, b_lines, b_spans, b_device, b_train,
-                        seq=seq, dropped=b_drops, timeout=10.0)
+                        seq=seq, dropped=b_drops, serve=b_serve,
+                        timeout=10.0)
                 self._unacked.popleft()
 
     def rpc_flush_events(self):  # idempotent

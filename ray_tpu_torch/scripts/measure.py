@@ -18,7 +18,11 @@ in the scoring process), on the local backend or on a cluster
 ``measure_serve`` is their serving counterpart, over ``LLMEngine``, and
 ``serve_vs_naive`` holds the engine's greedy tokens against the model's
 full-forward loop, and ``served_vs_fp32`` the engine's logits at its
-served dtype against an fp32 copy of it.
+served dtype against an fp32 copy of it; ``GPT2Scorer`` is a Serve
+deployment class scoring one row a request through ``@serve.batch``
+(it lives here, importable, because a cluster sends deployments by
+reference), and ``http_post_json`` / ``http_stream_tokens`` are the HTTP
+clients that drive Serve's proxy.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import os
 import shutil
 import statistics
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -36,6 +41,7 @@ import torch
 
 from ray_tpu_torch._device import (device_name, peak_flops_per_chip,
                                    resolve_device)
+from ray_tpu_torch.serve import batch as serve_batch
 
 # bench.py's "fused" GPT-2 config (bench.py:67 and :81): flash attention,
 # fused norms, dots remat, bf16 logits, chunked CE -- the configuration the
@@ -868,6 +874,136 @@ def _process_start() -> float:
 def fail_on_gpu(message: str) -> None:
     """A task's body that raises on its node (``chip_smoke.py`` 15d)."""
     raise RuntimeError(f"{message} on {_node_id()}")
+
+
+class GPT2Scorer:
+    """A Serve deployment class (``chip_smoke.py`` phase 17b): GPT-2
+    (``cfg``; GPT-2 small under ``FUSED_FLAGS`` when None) with ``params``
+    -- a tree of numpy arrays, or an ObjectRef of one, read from the store
+    here -- on this process's card (or ``device``), scoring one row a
+    request with ``gpt2_score`` through ``@serve.batch(max_batch_size=8)``
+    (8b's batch). A request is {"id": int, "tokens": [T + 1 ints]}, its
+    answer {"id", "nll"}. The batch queue's one thread is the only one
+    that launches on the card; the replica's request threads only
+    enqueue. On a GPU the constructor scores one batch of 8 rows of zeros
+    first, so a fresh process's first-use costs (the kernels'
+    load, the libraries' handles) fall in the deployment's start, not in
+    its first request. ``stats()`` gives the sizes of the batches that
+    formed, each batch's kernel launches in this process, and the device's
+    peak allocated bytes."""
+
+    def __init__(self, params, cfg=None, device=None):
+        import ray_tpu_torch
+        from ray_tpu_torch.core.object_ref import ObjectRef
+        from ray_tpu_torch.models.convert import params_from_numpy
+        from ray_tpu_torch.models.gpt2 import GPT2Config
+
+        if isinstance(params, ObjectRef):
+            params = ray_tpu_torch.get(params, timeout=600)
+        self.cfg = cfg if cfg is not None else GPT2Config(**FUSED_FLAGS)
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+            torch.cuda.reset_peak_memory_stats(dev)
+        self.device = dev
+        self.params = params_from_numpy(params, dev)
+        if dev.type == "cuda":
+            zeros = torch.zeros((8, self.cfg.seq_len + 1), dtype=torch.int64,
+                                device=dev)
+            with torch.inference_mode():
+                gpt2_score(self.params, {"id": torch.arange(8),
+                                         "tokens": zeros}, self.cfg)
+            torch.cuda.synchronize(dev)
+        self._lock = threading.Lock()
+        self._sizes: list = []
+        self._launches: list = []
+
+    @serve_batch(max_batch_size=8)
+    def score_batch(self, rows: list) -> list:
+        tokens = torch.as_tensor(np.asarray([r["tokens"] for r in rows],
+                                            dtype=np.int64))
+        with torch.inference_mode():
+            before = _launches()
+            out = gpt2_score(self.params,
+                             {"id": torch.arange(len(rows)),
+                              "tokens": tokens.to(self.device)}, self.cfg)
+            nll = out["nll"].float().cpu().numpy()
+            after = _launches()
+        with self._lock:
+            self._sizes.append(len(rows))
+            self._launches.append({k: after.get(k, 0) - before.get(k, 0)
+                                   for k in KERNELS
+                                   if after.get(k, 0) != before.get(k, 0)})
+        return [{"id": r["id"], "nll": float(x)} for r, x in zip(rows, nll)]
+
+    def __call__(self, row: dict) -> dict:
+        return self.score_batch(row)
+
+    def stats(self) -> dict:
+        with self._lock:
+            sizes, launches = list(self._sizes), list(self._launches)
+        peak = (torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == "cuda" else None)
+        return {"batch_sizes": sizes, "launches": launches,
+                "peak_memory_bytes": peak, "pid": os.getpid(),
+                "device": str(self.device)}
+
+
+def http_post_json(port: int, path: str, payload, headers=None,
+                   timeout: float = 600.0, host: str = "127.0.0.1"):
+    """POST ``payload`` as JSON to Serve's proxy; returns (status, the
+    decoded body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=json.dumps(payload).encode(),
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"null")
+    finally:
+        conn.close()
+
+
+def http_stream_tokens(port: int, path: str, payload, t0: float | None = None,
+                       timeout: float = 600.0, host: str = "127.0.0.1"):
+    """Stream one request through Serve's proxy (the ``x-serve-stream``
+    lane: chunked ndjson). Returns {status, tokens, chunks, done (the
+    terminator line), ttft_s and latency_s: the first chunk and the last
+    line as the client read them, after ``t0`` (``time.perf_counter()``,
+    the request's start when None), headers (the response's)}."""
+    import http.client
+
+    t0 = time.perf_counter() if t0 is None else t0
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=json.dumps(payload).encode(),
+                     headers={"Content-Type": "application/json",
+                              "x-serve-stream": "1"})
+        resp = conn.getresponse()
+        out = {"status": resp.status, "tokens": [], "chunks": 0,
+               "done": None, "ttft_s": None, "latency_s": None,
+               "headers": resp.getheaders()}
+        if resp.status != 200:
+            out["done"] = json.loads(resp.read() or b"null")
+            return out
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            msg = json.loads(line)
+            if "tokens" in msg:
+                if out["ttft_s"] is None:
+                    out["ttft_s"] = time.perf_counter() - t0
+                out["tokens"].extend(msg["tokens"])
+                out["chunks"] += 1
+            else:
+                out["done"] = msg
+        out["latency_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        conn.close()
 
 
 class AsyncEngineHost:

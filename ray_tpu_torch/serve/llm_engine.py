@@ -34,9 +34,16 @@ chaos crash, delay or hang the scheduler mid-iteration; the loop requeues
 interrupted admissions (bounded retries) and fails active streams fast
 after repeated step errors -- fail fast, never hang.
 
-Left out against the reference: ``step_cost`` (the XLA cost model), the
-``ObjectRef`` prompt lane, and mounting as a Serve deployment (HTTP and
-``ray://`` streaming); the metrics land in this package's own registry.
+Mounted as a Serve deployment (``serve.deployment(...)(LLMEngine)``), the
+replica names the engine's metric series after its deployment
+(``set_deployment_name``), ``handle.stream()``, chunked HTTP and ``ray://``
+drive ``llm_submit`` / ``llm_next``, and a prompt may arrive as an
+``ObjectRef`` the ``ray://`` proxy put in the store (read back from this
+node's shared memory). Every observation goes through the Serve recorder
+(``_observability._emit``): this process's registry, and on a cluster the
+worker's event batch to the agent's.
+
+Left out against the reference: ``step_cost`` (the XLA cost model).
 """
 
 from __future__ import annotations
@@ -167,6 +174,7 @@ class LLMEngine:
         self.eos_token = eos_token
         self.step_throttle_s = float(step_throttle_s)
         self._dep = deployment or "llm"
+        self._dep_explicit = deployment is not None
 
         cfg, init, init_cache, prefill, decode = _model_bundle(
             model, config, preset)
@@ -622,6 +630,15 @@ class LLMEngine:
         if isinstance(prompt, dict):
             max_new_tokens = prompt.get("max_tokens", max_new_tokens)
             prompt = prompt.get("tokens")
+        from ray_tpu_torch.core.object_ref import ObjectRef
+
+        if isinstance(prompt, ObjectRef):
+            # The store lane (reference :603-622): the ray:// proxy put a
+            # long prompt in the object store and handed over the ref; the
+            # read is a same-node shared-memory read, not a copy over RPC.
+            import ray_tpu_torch
+
+            prompt = ray_tpu_torch.get(prompt, timeout=30.0)
         if not prompt or not all(isinstance(t, int) for t in prompt):
             raise ValueError("prompt must be a non-empty list of token "
                              "ids (or {'tokens': [...]})")
@@ -777,6 +794,13 @@ class LLMEngine:
             if steps else 0.0,
             **c,
         }
+
+    def set_deployment_name(self, name: str) -> None:
+        """Called by the Serve replica at construction (reference :786), so
+        the decode series carry the deployment's name unless the engine
+        was given one."""
+        if not self._dep_explicit and name:
+            self._dep = name
 
     def check_health(self) -> str:
         """"ok" while the scheduler loop runs; raises once it has died (its

@@ -21,7 +21,9 @@ thread keeps the session alive and carries the batched releases, and a
 ref found inside a fetched value is pinned again on the proxy
 (``client_hold``) before it is used. Streaming tasks
 (``num_returns="streaming"``) have no path through the proxy, as in the
-reference: they are refused at submit.
+reference: they are refused at submit. A Serve token stream does
+(``serve_stream``, reference :185-210): the proxy runs the routed stream
+on the cluster and forwards each chunk over a server-streaming RPC.
 """
 
 from __future__ import annotations
@@ -220,6 +222,31 @@ class ClientBackend:
 
     def kv_keys(self, prefix=""):
         return self._call("client_kv", "keys", prefix)
+
+    # -- serve streaming ---------------------------------------------------
+
+    def serve_stream(self, deployment: str, args: tuple, kwargs: dict,
+                     meta=None):
+        """A Serve token stream (``handle.stream()`` over ``ray://``): the
+        proxy runs the routed stream on the cluster and forwards each
+        chunk over a connection of its own, so concurrent streams
+        multiplex; a shed on the cluster (``RequestShedError``) raises
+        here, and the proxy's keepalive frames are dropped."""
+        blob = ser.dumps((tuple(args), dict(kwargs or {}), meta))
+
+        def gen():
+            # The frame timeout outlives the proxy's keepalive cadence
+            # (20 s), not the stream: a deep-queued stream stays quiet for
+            # minutes while keepalives hold the socket.
+            for item in self.rpc.call_stream(
+                    "client_serve_stream", self.session_id, deployment,
+                    blob, timeout=90.0):
+                if isinstance(item, dict) \
+                        and item.get("__stream_keepalive__"):
+                    continue
+                yield item
+
+        return gen()
 
     # -- lifecycle ---------------------------------------------------------
 

@@ -19,6 +19,11 @@ has the env, and a ``get`` returns the stored bytes undecoded
 here (the port's own types and plain data). The proxy packages a task's
 ``runtime_env`` on this host, as the reference's does.
 
+``client_serve_stream`` runs a Serve token stream for the client
+(reference :223): a prompt of ``PROMPT_SHM_MIN_TOKENS`` or more goes into
+the store and the replica reads it back from its node's shared memory,
+and keepalive frames flow while the stream waits for a slot.
+
 A session ends on the client's ``bye`` or when it has not been heard from
 for ``session_ttl_s`` (checked every quarter of it, at most every 5 s):
 its pins drop, and the actors it created and did not name are killed.
@@ -241,3 +246,37 @@ class ClientProxyServer:
 
     def rpc_client_kv(self, sid: str, op: str, *args):
         return getattr(self.backend, "kv_" + op)(*args)
+
+    # Prompts of at least this many tokens ride the object store instead
+    # of the actor call's frame: the proxy puts the list once and hands
+    # the replica an ObjectRef, a same-node shared-memory read.
+    PROMPT_SHM_MIN_TOKENS = 512
+
+    def rpc_client_serve_stream(self, sid: str, deployment: str,
+                                blob: bytes):
+        """Server-streaming Serve call (``handle.stream()`` over
+        ``ray://``): a generator handler, so the RPC layer ships a frame a
+        token chunk, each client stream on its own connection onto this
+        one driver backend. A shed raises as the stream's terminal
+        error."""
+        from ray_tpu_torch.serve import _private as sp
+
+        args, kwargs, meta = ser.loads(blob)
+        self._session(sid)
+        prompt_ref = None
+        if (args and isinstance(args[0], (list, tuple))
+                and len(args[0]) >= self.PROMPT_SHM_MIN_TOKENS):
+            prompt_ref = self.backend.put(list(args[0]))
+            args = (prompt_ref,) + tuple(args[1:])
+
+        def gen():
+            # The closure pins prompt_ref until the engine has read it
+            # (the submit's round trip ends before the first chunk).
+            # Keepalive frames flow while the stream waits in a deep
+            # admission queue, so the client's socket never starves.
+            _pin = prompt_ref  # noqa: F841
+            yield from sp.stream_call(
+                deployment, tuple(args), dict(kwargs or {}), meta,
+                backend=self.backend, keepalive_every=20.0)
+
+        return gen()

@@ -1,9 +1,9 @@
 """Counter / Gauge / Histogram, the Prometheus text exposition and its
-parser (the parts of ``ray_tpu/util/metrics.py`` the serving engine, the
-train session and trainer, the data library, the cluster head's drain,
-placement-group reschedule, pubsub and persistence planes, the RPC
-reconnects, the object plane's spills and restores, the memory
-monitor's kills, and their tests call).
+parser (the parts of ``ray_tpu/util/metrics.py`` the serving engine and
+the Serve runtime, the train session and trainer, the data library, the
+cluster head's drain, placement-group reschedule, pubsub and persistence
+planes, the RPC reconnects, the object plane's spills and restores, the
+memory monitor's kills, and their tests call).
 
 The registry is this process's own. A cluster federates the registries
 of its head and agents into one scrape (``merge_prometheus``; the head's
@@ -162,11 +162,58 @@ SERVE_LATENCY_BOUNDARIES = [
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
     2.5, 5.0, 10.0, 30.0, 60.0,
 ]
+# The Serve request path (serve/_private.py, serve/_observability.py):
+# every family node_id-tagged, as the JAX package's, so one agent's series
+# never federates as another's.
+SERVE_REQUEST_SECONDS = Histogram(
+    "ray_tpu_serve_request_seconds",
+    "Serve request wall time per phase (route=router assign, "
+    "queue_wait=assign to replica execution, batch_wait=time queued in "
+    "a @serve.batch queue, execute=user callable, serialize=response "
+    "serialize/transfer remainder, total=end to end)",
+    boundaries=SERVE_LATENCY_BOUNDARIES,
+    tag_keys=("node_id", "deployment", "phase"),
+)
+SERVE_REQUESTS_TOTAL = Counter(
+    "ray_tpu_serve_requests_total",
+    "Serve requests by terminal status (ok/error/shed), counted once "
+    "at the router",
+    tag_keys=("node_id", "deployment", "status"),
+)
 SERVE_SHED_TOTAL = Counter(
     "ray_tpu_serve_shed_total",
     "Deadline-expired serve requests shed instead of executed, by the "
     "site that shed them",
     tag_keys=("node_id", "deployment", "reason"),
+)
+SERVE_REPLICA_ONGOING = Gauge(
+    "ray_tpu_serve_replica_ongoing",
+    "In-flight requests executing on one serve replica",
+    tag_keys=("node_id", "deployment", "replica"),
+)
+SERVE_ROUTER_QUEUE_DEPTH = Gauge(
+    "ray_tpu_serve_router_queue_depth",
+    "Requests blocked in a router process waiting for replica capacity "
+    "(backpressure behind max_concurrent_queries)",
+    tag_keys=("node_id", "deployment", "worker"),
+)
+SERVE_BATCH_SIZE = Histogram(
+    "ray_tpu_serve_batch_size",
+    "Items per executed @serve.batch batch",
+    boundaries=[1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0],
+    tag_keys=("node_id", "deployment"),
+)
+SERVE_RECONCILE_SECONDS = Gauge(
+    "ray_tpu_serve_reconcile_seconds",
+    "Duration of the serve controller's last reconcile pass (health "
+    "probes + autoscaling + replica convergence)",
+    tag_keys=("node_id",),
+)
+SERVE_EVENTS_DROPPED = Counter(
+    "ray_tpu_serve_events_dropped_total",
+    "Serve observations discarded by a worker's bounded ship buffer "
+    "before the event flusher drained them",
+    tag_keys=("node_id",),
 )
 SERVE_DECODE_STEP_SECONDS = Histogram(
     "ray_tpu_serve_decode_step_seconds",

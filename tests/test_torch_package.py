@@ -105,6 +105,7 @@ SLICE_MODULES = [
     "ray_tpu_torch.util.xla_cost",
     "ray_tpu_torch.serve",
     "ray_tpu_torch.serve._observability",
+    "ray_tpu_torch.serve._private",
     "ray_tpu_torch.serve.llm_engine",
     "ray_tpu_torch._private.usage",
     "ray_tpu_torch._private.runtime_env",
@@ -169,7 +170,9 @@ def test_import_pulls_in_no_jax_and_nothing_of_ray_tpu():
         "from ray_tpu_torch import ObjectRefGenerator\n"
         "from ray_tpu_torch.core.object_ref import _StreamEnd\n"
         "from ray_tpu_torch.scripts.measure import (AsyncEngineHost,\n"
+        "                                           GPT2Scorer,\n"
         "                                           score_stream)\n"
+        "from ray_tpu_torch.serve import DAGDriver, LLMEngine\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -1254,3 +1257,35 @@ def test_chip_smoke_operate(cuda):
     assert out.returncode == 0, (out.stdout[-3000:], out.stderr[-3000:])
     assert "operate: profile" in out.stdout
 
+
+@pytest.mark.gpu
+def test_a_handle_call_reaches_a_gpu_replica_on_the_card(cuda):
+    """A Serve deployment with ``ray_actor_options={"num_gpus": 1}`` on a
+    one-node cluster with the card: a handle call runs on the replica's
+    CUDA device, in the replica's process, not this one."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_serve_loops as L
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.cluster import Cluster
+
+    ray_tpu_torch.shutdown()
+    c = Cluster()
+    try:
+        c.add_node(num_cpus=2, num_gpus=1)
+        c.wait_for_nodes()
+        ray_tpu_torch.init(address=c.address)
+        dep = serve.deployment(name="probe", ray_actor_options={
+            "num_gpus": 1})(L.DeviceProbe)
+        handle = serve.run(dep.bind())
+        out = ray_tpu_torch.get(handle.remote([1.0, 2.0]), timeout=300)
+        assert out["device"] == "cuda:0"
+        assert out["value"] == [2.0, 4.0]
+        assert out["pid"] != os.getpid()
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+            c.shutdown()
