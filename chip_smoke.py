@@ -432,6 +432,47 @@ that fails:
    beside 17a's handle lane;
    then ``serve.shutdown()``. Held: within 10 s the head lists no live
    ``Replica``, ``HTTPProxy`` or ``ServeController``;
+18. Tune (after phase 17; ``--tune`` runs it alone), GPT-2 small trials of
+   phase 4's config, init (seed 0) and batch (seed 1), held against phase
+   4's GPT-2 flash run:
+   18a. ``measure_tune_gpt2``: ``tune.with_resources(
+   measure.tune_gpt2_trial, {"GPU": 0.5})`` over the learning rates
+   ``TUNE_ASHA_LRS`` (3e-4 among them) on the local backend, two trials
+   on the card at once, each from its own actor thread,
+   ``ASHAScheduler(max_t=6, grace_period=2, reduction_factor=2)``, metric
+   ``loss``, mode ``min``, every kernel counter set to 0 just before and
+   read once every started step has finished. Held: no trial error; the
+   3e-4 trial's losses phase 4's over the steps it ran (rtol 1e-5); a
+   trial stopped before max_t; each decision that of a fresh
+   ``ASHAScheduler`` replayed on the recorded order of arrival; each of
+   the seven kernels launched phase 4's per-step count times the steps
+   the trials started, no other kernel; ``get_best_result()`` the lowest
+   final loss among the trials that reached max_t. Printed: the wall
+   time, each trial's time to its first report and ms/step beside phase
+   4's, the process's peak memory (both trials' together: they share
+   one process and its allocator), the runner's time from a report to
+   its decision;
+   18b. ``measure_tune_gpt2(scheduler="pbt")``: two trials (3e-4 and
+   1e-6), ``perturbation_interval=2``, a ``save_sharded`` checkpoint
+   directory every second step, 6 steps, lr mutations a list. Held: no
+   error; an exploit; each exploiting attempt's first two losses equal
+   to two steps computed in the phase from the donor's checkpoint at the
+   exploit's lr (rtol 1e-5); the checkpoints' directory gone at the end.
+   Printed: the exploits, the restart time (the stop to the new
+   attempt's first report), the checkpoints' bytes and save/load
+   seconds;
+   18c. ``measure_tune_trainer_gpt2`` on a ``Cluster`` of one node with
+   the card: two trials (3e-4, 1e-3) of ``tune_trainer_gpt2_trial``,
+   each in a gang ``[{"CPU": 1}, {"CPU": 1, "GPU": 1}]`` (PACK) running
+   ``CudaTrainer(trainer_gpt2_loop, 3 steps, no checkpoint)`` whose
+   worker takes the gang's second bundle. Held: both finish, one after
+   the other; the 3e-4 trial's losses phase 4's first three within 2e-3;
+   each worker's launches phase 4's per-step count times 4 (3 steps and
+   ``step_cost``'s call); within 10 s of ``fit`` no live placement group
+   and the GPU free. Printed: each trial's start to its first report,
+   its wall time, and its start by stage from ``fit``'s (the trial's
+   process, its entry, the worker's process, actor, group, loop, device,
+   state, ``step_cost``, first step);
 13. one JSON line of every TPU kernel of the JAX package, all ported, with
    its launches on its main path, over the mesh of 1, with the ring of
    one, through the trainer, through the cluster trainer's worker
@@ -442,7 +483,8 @@ that fails:
    run, a call of phase 12's operated run, a batch of phase 15a's stream,
    a call of phase 15b's streamed split, a batch of phase 16a's task, of
    16c's task through ``ray://`` and 16b's tasks, a batch that phase 17b's
-   ``@serve.batch`` formed (the flash kernels: GPT-2's,
+   ``@serve.batch`` formed, phase 18a's trials (with the steps they
+   started) and 18c's trainer workers (the flash kernels: GPT-2's,
    with Llama's and the MoE's beside them, and their launches and ms in
    phase 3b's rings);
 14. the last line, ``{"ok": true, "device": {...}}``.
@@ -483,10 +525,14 @@ GPT-2 run, 4b, 8a, 8b and phase 7's GPT-2 engine it is held against.
 GPT-2 run, 4b, 8a and 8b it is held against.
 ``python3 chip_smoke.py --serve`` runs phase 17 alone, after phase 4's
 GPT-2 run, 4b, 8a, 8b and phase 7's GPT-2 engine it is held against.
+``python3 chip_smoke.py --tune`` runs phase 18 alone, after phase 4's
+GPT-2 run it is held against.
 ``python3 chip_smoke.py --sp-ranks`` runs phase 5's three sp=2 two-rank
 runs alone, with phase 4's GPT-2 and Llama runs they are held against,
 on a machine with two or more cards; ``--tp-ranks`` the two tp=2 runs
 the same way, and ``--pp-ranks`` the pipeline over two ranks.
+
+After each phase of the whole run, a line gives the seconds it took.
 
 Exits non-zero, printing no result, when CUDA is not available or when the
 ``ray_tpu_torch`` package is not beside this file.
@@ -702,6 +748,23 @@ SERVED_COSINE, SERVED_CACHE_REL = 0.999, 0.03
 
 class PhaseError(RuntimeError):
     pass
+
+
+class PhaseClock:
+    """The seconds each phase of ``main``'s run took, from the end of the
+    one before: ``lap`` prints them on a line of their own and keeps them
+    in ``seconds``."""
+
+    def __init__(self, smi: str):
+        self.smi = smi
+        self.seconds: dict = {}
+        self._t = time.perf_counter()
+
+    def lap(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.seconds[phase] = now - self._t
+        self._t = now
+        print(f"phase {phase}: {self.seconds[phase]:.1f} s [{self.smi}]")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -4469,6 +4532,234 @@ def serve_client_driver_main(address: str, prompts_path: str,
     return 0
 
 
+# -- phase 18: Tune ------------------------------------------------------------
+
+# 18a: ASHA over four learning rates (grid order), 3e-4 among them: at the
+# rung of step 2 a trial is stopped when its loss is worse than the best
+# loss recorded there before it, and after one AdamW step the smaller
+# rates' losses are the worse.
+TUNE_ASHA_LRS = (1e-3, 3e-4, 1e-4, 3e-5)
+TUNE_ASHA = dict(steps=6, grace_period=2, reduction_factor=2)
+# 18b: PBT over 3e-4 and a rate so small that its loss stays near the
+# first step's. PBT ranks each trial's latest loss, whatever its step, and
+# two trials sharing the card can run steps apart; a curve above 3e-4's
+# at every step keeps the small rate the bottom trial, so it exploits
+# 3e-4's checkpoint at its first perturbation step after 3e-4's step 2.
+TUNE_PBT_LRS = (3e-4, 1e-6)
+TUNE_PBT_MUTATIONS = {"lr": [2e-4, 4e-4]}
+# 18c: two trials of the trainer, three steps each.
+TUNE_TRAINER_LRS = (3e-4, 1e-3)
+TUNE_TRAINER_STEPS = 3
+
+
+def tune_phase(torch, counters, cfg, ref, smi):
+    """Phase 18: Tune over GPT-2 small trials (phase 4's config, init and
+    batch; ``ref`` is phase 4's GPT-2 flash run). 18a ASHA and 18b PBT
+    through ``measure_tune_gpt2`` on the local backend, two
+    ``{"GPU": 0.5}`` trials on the card at once; 18c Tune x Train with
+    gangs on a ``Cluster`` of one node with the card
+    (``measure_tune_trainer_gpt2``). Returns the report entry."""
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.scripts.measure import (measure_tune_gpt2,
+                                               measure_tune_trainer_gpt2)
+
+    out = {}
+    t_phase = time.perf_counter()
+    per_step = ref["launches_per_step"]
+
+    # 18a: ASHA.
+    steps = TUNE_ASHA["steps"]
+    a = measure_tune_gpt2(cfg, BATCH, lrs=TUNE_ASHA_LRS, scheduler="asha",
+                          steps=steps, max_concurrent=2,
+                          resources={"GPU": 0.5},
+                          grace_period=TUNE_ASHA["grace_period"],
+                          reduction_factor=TUNE_ASHA["reduction_factor"])
+    out["asha"] = a
+    require(not a["errors"], f"tune ASHA: trial errors {a['errors']}")
+    for t in a["trials"]:
+        print(f"tune ASHA: lr {t['lr']:g}: steps {t['steps']} (started "
+              f"{t['steps_started']}), losses "
+              f"{[round(x, 4) for x in t['losses']]}, first report "
+              f"{t['first_report_s']:.2f} s after its entry, "
+              f"{t['ms_step']:.2f} ms/step with two trials on the card "
+              f"(phase 4: {ref['ms_step']:.2f}) [{smi}]")
+    (t3,) = [t for t in a["trials"] if t["lr"] == 3e-4]
+    n3 = len(t3["losses"])
+    gaps = [abs(x - y) / abs(y) for x, y in zip(t3["losses"], ref["losses"])]
+    require(max(gaps) <= 1e-5, f"tune ASHA: the 3e-4 trial's losses off "
+            f"phase 4's first {n3} by {max(gaps):.3e} (rtol 1e-5)")
+    stopped = [t["lr"] for t in a["trials"] if t["steps"][-1] < steps]
+    require(stopped, "tune ASHA: no trial stopped before max_t")
+    require(a["replay"] == a["decisions"], f"tune ASHA: a fresh scheduler "
+            f"replayed {a['replay']} on the record, the run decided "
+            f"{a['decisions']}")
+    started = a["steps_started"]
+    for k in PORTED:
+        want = per_step[k] * started
+        require(a["launches"].get(k, 0) == want, f"tune ASHA: {k} launched "
+                f"{a['launches'].get(k, 0)} times over {started} started "
+                f"steps, expected {want}")
+    full = [t for t in a["trials"] if t["steps"][-1] == steps]
+    lowest = min(full, key=lambda t: t["losses"][-1])
+    require(a["best"]["lr"] == lowest["lr"]
+            and a["best"]["loss"] == lowest["losses"][-1],
+            f"tune ASHA: best {a['best']}, the lowest final loss at max_t "
+            f"lr {lowest['lr']:g} {lowest['losses'][-1]}")
+    dec = sorted(a["decide_ms"])
+    print(f"tune ASHA: {len(a['trials'])} trials, max_t {steps}, grace "
+          f"{TUNE_ASHA['grace_period']}, rf {TUNE_ASHA['reduction_factor']},"
+          f" 2 at once at GPU 0.5: wall {a['wall_s']:.2f} s; stopped before "
+          f"max_t: lr {stopped}; best lr {a['best']['lr']:g} loss "
+          f"{a['best']['loss']:.4f}; decisions {a['decisions']} (a fresh "
+          f"ASHAScheduler replays the same); {started} steps started, each "
+          f"kernel launched phase 4's count a step x {started}; process "
+          f"peak memory with two trials "
+          f"{a['peak_memory_bytes'] / 2**30:.2f} GiB (phase 4, one run: "
+          f"{ref['peak_memory_bytes'] / 2**30:.2f} GiB); report to decision"
+          f" p50 {dec[len(dec) // 2]:.2f} ms, max {dec[-1]:.2f} ms [{smi}]")
+
+    # 18b: PBT with checkpoints.
+    p = measure_tune_gpt2(cfg, BATCH, lrs=TUNE_PBT_LRS, scheduler="pbt",
+                          steps=6, max_concurrent=2, resources={"GPU": 0.5},
+                          ckpt_every=2, perturbation_interval=2,
+                          mutations=TUNE_PBT_MUTATIONS, seed=0)
+    out["pbt"] = p
+    require(not p["errors"], f"tune PBT: trial errors {p['errors']}")
+    require(p["exploits"], "tune PBT: no exploit happened; arrivals "
+            + str([(r["result"]["lr"], r["result"]["step"],
+                    round(r["result"]["loss"], 4)) for r in p["log"]]))
+    require(not p["dirs_left"], "tune PBT: the checkpoints' directory is "
+            "still there")
+    by_id = {t["trial_id"]: t for t in p["trials"]}
+    seen: dict = {}
+    restarts, checked = [], 0
+    for ex in p["exploits"]:
+        t = by_id[ex["trial"]]
+        seen[ex["trial"]] = seen.get(ex["trial"], 0) + 1
+        # Each exploit starts the trial's next attempt; one that starts
+        # from a checkpoint of the last step runs no step and reports
+        # nothing (it can only be the trial's last).
+        if seen[ex["trial"]] >= len(t["attempt_losses"]):
+            print(f"tune PBT: trial {ex['trial']} exploited at step "
+                  f"{ex['step']} from {ex['checkpoint']['sharded']}: its "
+                  f"next attempt started at the last step and ran none")
+            continue
+        att = t["attempt_losses"][seen[ex["trial"]]]
+        nxt = next((r for r in p["log"] if r["trial"] == ex["trial"]
+                    and r["wall"] > ex["wall"]), None)
+        restart = nxt["result"]["wall"] - ex["wall"] if nxt else None
+        restarts.append(restart)
+        checked += 1
+        rec = ex["recomputed"]
+        g = [abs(x - y) / abs(y) for x, y in zip(att, rec)]
+        print(f"tune PBT: trial {ex['trial']} exploited at step {ex['step']}"
+              f" from {ex['checkpoint']['sharded']} at lr "
+              f"{ex['config']['lr']:g}: its next attempt's losses "
+              f"{[round(x, 5) for x in att[:2]]}, recomputed here from the "
+              f"donor's checkpoint {[round(x, 5) for x in rec]} (relative "
+              f"gaps {[f'{x:.2e}' for x in g]}); restart (stop to the new "
+              f"attempt's first report) "
+              f"{'n/a' if restart is None else f'{restart:.2f} s'}")
+        require(g and max(g) <= 1e-5, f"tune PBT: the exploiting attempt's "
+                f"losses {att[:2]} off the donor's checkpoint's {rec}")
+    require(checked, "tune PBT: no exploit's attempt ran a step")
+    saves = [x for t in p["trials"] for x in t["save_s"]]
+    loads = [x for t in p["trials"] for x in t["load_s"]]
+    print(f"tune PBT: {len(p['exploits'])} exploit(s); trials "
+          f"{[(t['lr'], t['attempts']) for t in p['trials']]}; checkpoint "
+          f"bytes by trial {p['ckpt_bytes']}; save_s "
+          f"{[round(x, 3) for x in saves]}; load_s "
+          f"{[round(x, 3) for x in loads]}; wall {p['wall_s']:.2f} s; "
+          f"checkpoint directory removed [{smi}]")
+    out["pbt_restart_s"] = restarts
+
+    # 18c: Tune x Train with gangs on a cluster of one node with the card.
+    torch.cuda.empty_cache()
+    cluster = Cluster()
+    try:
+        cluster.add_node(num_cpus=4, num_gpus=1)
+        cluster.wait_for_nodes()
+        c = measure_tune_trainer_gpt2(cfg, BATCH, cluster.address,
+                                      lrs=TUNE_TRAINER_LRS,
+                                      steps=TUNE_TRAINER_STEPS)
+    finally:
+        cluster.shutdown()
+    out["trainer"] = c
+    trials = sorted(c["trials"], key=lambda t: t["entry"])
+    require([t["error"] for t in trials] == [None] * len(TUNE_TRAINER_LRS),
+            f"tune x train: trial errors {[t['error'] for t in trials]}")
+    require(all(x["end"] <= y["entry"] for x, y in zip(trials, trials[1:])),
+            "tune x train: the trials overlapped on the one card")
+    calls = TUNE_TRAINER_STEPS + 1  # the steps and step_cost's call
+    for t in trials:
+        for k in PORTED:
+            want = per_step[k] * calls
+            require(t["launches"].get(k, 0) == want, f"tune x train: {k} "
+                    f"launched {t['launches'].get(k, 0)} times in the "
+                    f"trainer's worker, expected {want}")
+        print(f"tune x train: lr {t['lr']:g}: losses "
+              f"{[round(x, 4) for x in t['losses']]}; trial start to first "
+              f"report {t['first_step_wall'] - t['entry']:.2f} s, wall "
+              f"{t['end'] - t['entry']:.2f} s; trial pid {t['pid']}, "
+              f"trainer worker pid {t['worker_pid']} [{smi}]")
+        marks = [("trial process", t["process"]), ("trial entry",
+                                                  t["entry"])]
+        marks += [(f"worker {k}", v) for k, v in sorted(
+            t["worker_startup"].items(), key=lambda kv: kv[1] or 0) if v]
+        marks.append(("first step", t["first_step_wall"]))
+        print("tune x train: lr " + f"{t['lr']:g}" + ": seconds from fit's "
+              "start: " + ", ".join(f"{k} {v - c['fit_wall']:.2f}"
+                                    for k, v in marks if v is not None))
+    (c3,) = [t for t in trials if t["lr"] == 3e-4]
+    g = [abs(x - y) / abs(y) for x, y in zip(c3["losses"], ref["losses"])]
+    require(len(g) == TUNE_TRAINER_STEPS and max(g) <= 2e-3,
+            f"tune x train: the 3e-4 trial's losses off phase 4's first "
+            f"three by {max(g) if g else None} (rtol 2e-3)")
+    require(c["live_pgs"] == [] and c["settle_s"] <= 10.0,
+            f"tune x train: live placement groups {c['live_pgs']} "
+            f"{c['settle_s']:.2f} s after fit")
+    require(c["available"].get("GPU") == 1.0, f"tune x train: available "
+            f"{c['available']} after fit")
+    print(f"tune x train: 2 gang trials ([{{CPU: 1}}, {{CPU: 1, GPU: 1}}], "
+          f"PACK) one after the other on the card, fit {c['wall_s']:.2f} s;"
+          f" groups {c['pgs']}, none live {c['settle_s']:.2f} s after fit; "
+          f"available {c['available']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def tune_main() -> int:
+    """``--tune``: phase 18 alone, after phase 4's GPT-2 flash run it is
+    held against."""
+    import torch
+
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import fused_norm as fn
+    from ray_tpu_torch.scripts.measure import FUSED_FLAGS, measure_gpt2
+
+    require(torch.cuda.is_available(), "--tune needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    OUT.mkdir(exist_ok=True)
+    _build.build(list(SOURCES))
+    cfg = GPT2Config(**FUSED_FLAGS)
+    counters = (fn.KERNEL_INVOCATIONS, fa.KERNEL_INVOCATIONS)
+    step = run_step(torch, counters, "GPT-2", measure_gpt2, cfg, BATCH,
+                    WARMUP, STEPS, EXPECTED_PER_STEP)
+    out = tune_phase(torch, counters, cfg, step, smi)
+    print(f"phase 18: {out['phase_s']:.1f} s [{smi}]")
+    (OUT / "chip_smoke_tune.json").write_text(
+        json.dumps(out, indent=1, default=str))
+    return 0
+
+
 def _to_cuda(torch, tree):
     if isinstance(tree, dict):
         return {k: _to_cuda(torch, v) for k, v in tree.items()}
@@ -4859,6 +5150,8 @@ def main() -> int:
           f"{', '.join(spills) or 'none'}")
 
     # Phase 3: each kernel against its plain version.
+    clock = PhaseClock(smi)
+    report["phase_s"] = clock.seconds
     spec = device_spec(name)
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
     warm_clocks()
@@ -4936,10 +5229,12 @@ def main() -> int:
                   f"max_abs_err={r['max_abs_err']:.3e} "
                   f"launches_per_step={per_step} [bf16, {shape}]")
     require(not failures, "kernel vs plain: " + "; ".join(failures))
+    clock.lap("3")
 
     # Phase 3b: the ring on the flash kernels, one process.
     counters = (fn.KERNEL_INVOCATIONS, fa.KERNEL_INVOCATIONS)
     report["ring"] = ring_phase(torch, fa, ra, counters, flush, smi)
+    clock.lap("3b")
 
     # Phase 4: the train steps -- GPT-2's main path (flash) first, then
     # GPT-2 with dense attention, then Llama's main path, then the MoE's.
@@ -4963,9 +5258,11 @@ def main() -> int:
           f"{int(mcfg.capacity_factor * L_ROWS / mcfg.n_experts)} tokens an "
           f"expert of {L_ROWS} a step [{smi}]")
     report["train_step_moe"] = mstep
+    clock.lap("4")
 
     # Phase 4b: the trainer, over phase 4's GPT-2 flash run.
     report["trainer"] = trainer_phase(torch, counters, cfg, step, smi)
+    clock.lap("4b")
 
     # Phase 8: the data library -- phase 4b's run fed from a Dataset (8a),
     # then batch inference with its trained parameters (8b).
@@ -4973,24 +5270,29 @@ def main() -> int:
                                              report["trainer"], smi)
     report["batch_predict"] = batch_predict_phase(torch, counters, cfg,
                                                   trained, smi)
+    clock.lap("8")
 
     # Phase 4c: GPT-2's blocks as a 2-stage pipeline in one process.
     report["pipeline"] = pipeline_phase(torch, counters, smi)
+    clock.lap("4c")
 
     # Phase 5: the same steps over a mesh of 1, the sharded checkpoint,
     # and 2 ranks where there are two cards.
     mesh = mesh_phase(torch, counters,
                       {"gpt2": step, "llama": lstep, "moe": mstep}, smi)
     report["mesh"] = mesh
+    clock.lap("5")
 
     # Phase 5b: the trainer's rank in a worker process of a Cluster.
     report["cluster_trainer"] = cluster_trainer_phase(
         torch, cfg, step, report["trainer"], mesh["two_ranks"], smi)
+    clock.lap("5b")
 
     # Phase 9: the trainer through a preemption notice, and the elastic
     # gang (run after 5b; the number keeps the earlier phases' numbers).
     report["drain"] = drain_phase(torch, cfg, step,
                                   report["cluster_trainer"], smi)
+    clock.lap("9")
 
     # Phase 10: the trainer through a head restart, held against phase
     # 5b's run (10a), and phase 8b's scoring through spilled, restored and
@@ -5001,6 +5303,7 @@ def main() -> int:
         report["cluster_trainer"]["ms_step"], smi)
     report["spill"] = spill_phase(torch, cfg, trained,
                                   report["batch_predict"], smi)
+    clock.lap("10")
 
     # Phase 11: spillback to a peer over the gossiped view (11a), and
     # phase 5b's run observed through the state API and the trace plane
@@ -5008,11 +5311,13 @@ def main() -> int:
     report["spill_to_peer"] = spill_to_peer_phase(torch, cfg, smi)
     report["observe"] = observe_phase(torch, cfg, report["cluster_trainer"],
                                       smi)
+    clock.lap("11")
 
     # Phase 12: the cluster operated -- phase 5b's run read, profiled,
     # scraped, held to SLOs and fault-injected through the state API.
     report["operate"] = operate_phase(torch, cfg, report["cluster_trainer"],
                                       smi)
+    clock.lap("12")
 
     # Phase 6: kernel paths vs the plain path, same weights and batch.
     gen = torch.Generator(device="cuda")
@@ -5039,9 +5344,11 @@ def main() -> int:
     report["kernel_vs_plain_path"].update(compare_moe_paths(
         torch, moe_loss, params, tokens, mcfg))
     del params
+    clock.lap("6")
 
     # Phase 7: the serving engines.
     report["serving"] = serve_phase(torch, counters, smi)
+    clock.lap("7")
 
     # Phase 15: streaming returns (15a), the streamed block split (15b),
     # an async actor hosting phase 7's engine (15c), a pushed task error
@@ -5049,11 +5356,13 @@ def main() -> int:
     report["streams"] = streams_phase(
         torch, counters, cfg, report["ingest"], report["batch_predict"],
         report["serving"], trained, smi)
+    clock.lap("15")
 
     # Phase 16: runtime envs (16a, 16b) and a remote driver over ray://
     # (16c), on 8a's parameters and 8b's rows.
     report["envs"] = envs_phase(torch, cfg, report["batch_predict"], trained,
                                 smi)
+    clock.lap("16")
 
     # Phase 17: Serve on the card -- phase 7's engine as a deployment
     # (17a), 8b's scoring through @serve.batch (17b), ray:// (17c).
@@ -5061,6 +5370,13 @@ def main() -> int:
         torch, cfg, report["serving"], report["batch_predict"], trained, smi,
         report["streams"]["async_actor"])
     del trained
+    clock.lap("17")
+
+    # Phase 18: Tune -- ASHA (18a) and PBT (18b) over GPT-2 small trials
+    # sharing the card on the local backend, and Tune x Train with gangs
+    # on a cluster (18c), held against phase 4's GPT-2 flash run.
+    report["tune"] = tune_phase(torch, counters, cfg, step, smi)
+    clock.lap("18")
 
     # Phase 13: the kernels line. Each kernel's launches are those of the
     # main path it belongs to (the flash kernels: GPT-2's, with Llama's and
@@ -5095,6 +5411,13 @@ def main() -> int:
                 "launches"].get(kname, 0),
             "launches_serve_score_per_batch": report["serve"]["score"][
                 "launches_per_batch"].get(kname, 0),
+            "launches_tune_asha": report["tune"]["asha"]["launches"].get(
+                kname, 0),
+            "tune_asha_steps_started": report["tune"]["asha"][
+                "steps_started"],
+            "launches_tune_trainer_worker": [
+                t["launches"].get(kname, 0)
+                for t in report["tune"]["trainer"]["trials"]],
             "launches_streamed_split_per_call": (
                 report["streams"]["split"]["launches"][kname]
                 / (WARMUP + STEPS + 1)),
@@ -5156,6 +5479,7 @@ def main() -> int:
                                                  "bound_ms")}
         kernels.append(entry)
     report["kernels_line"] = {"kernels": kernels, "not_ported": []}
+    clock.lap("13")
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps(report["kernels_line"]))
 
@@ -5528,6 +5852,8 @@ if __name__ == "__main__":
         sys.exit(client_driver_main(*sys.argv[2:7]))
     if sys.argv[1:2] == ["--streams"]:
         sys.exit(streams_main())
+    if sys.argv[1:2] == ["--tune"]:
+        sys.exit(tune_main())
     if sys.argv[1:2] == ["--serve"]:
         sys.exit(serve_main())
     if sys.argv[1:2] == ["--serve-client-driver"]:

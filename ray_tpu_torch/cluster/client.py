@@ -1442,6 +1442,8 @@ class ClusterBackend:
         if isinstance(strategy, PlacementGroupSchedulingStrategy):
             pg = strategy.placement_group
             info["bundle_index"] = strategy.placement_group_bundle_index
+            if strategy.placement_group_capture_child_tasks:
+                info["capture"] = True
         elif isinstance(strategy, NodeAffinitySchedulingStrategy):
             info["node_affinity"] = strategy.node_id
         if pg is not None:
@@ -2557,7 +2559,20 @@ class ClusterBackend:
         return ref
 
     def current_placement_group(self):
-        return None  # capture is a local-backend feature for now
+        """The group that captured this worker's actor (an actor placed
+        with ``placement_group_capture_child_tasks``; ``workerproc``
+        records it at construction), else None. The actor's children
+        are not placed in it by default, as the local backend places
+        them: a child names the group itself (``train/trainer.py
+        WorkerGroup``). The reference's cluster backend reports none."""
+        pg_id = getattr(self, "captured_pg_id", None)
+        if pg_id is None:
+            return None
+        table = self.head.call("placement_group_table", pg_id)
+        if table is None:
+            return None
+        return {"id": pg_id, "bundles": table["bundles"],
+                "strategy": table["strategy"], "name": table.get("name", "")}
 
     # -- introspection / lifecycle ----------------------------------------
 

@@ -2804,11 +2804,17 @@ class HeadServer:
 
     def cluster_metrics_text(self) -> str:
         """One exposition body for the whole cluster: the head's registry
-        merged with every alive agent's (``/metrics/cluster``)."""
-        chunks = [_metrics.prometheus_text()]
-        chunks.extend(text for _nid, text in self._fanout_agents(
-            "metrics_text", timeout=5.0))
-        return _metrics.merge_prometheus(chunks)
+        merged with every alive agent's (``/metrics/cluster``). A series
+        of node X takes X's own render: in an in-process cluster the head
+        and the agents share one registry, rendered by each of them at
+        once, and only X refreshes X's device and store gauges just
+        before it renders (the reference keeps every series' first-seen
+        sample, ``ray_tpu/cluster/head.py:2348``, which can be another
+        render's copy of X's previous refresh)."""
+        rendered = self._fanout_agents("metrics_text", timeout=5.0)
+        return _metrics.merge_prometheus(
+            [_metrics.prometheus_text()] + [t for _nid, t in rendered],
+            owners=[None] + [nid for nid, _t in rendered])
 
     def rpc_cluster_metrics_text(self) -> str:  # idempotent (read-only)
         return self.cluster_metrics_text()

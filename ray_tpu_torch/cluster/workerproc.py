@@ -726,6 +726,11 @@ class WorkerHandler:
         rec = self._record(spec, "ACTOR_CREATION_TASK")
         err = None
         clock = _PhaseClock(rec["phases"])
+        sinfo = spec.get("sinfo") or {}
+        if sinfo.get("capture"):
+            # The group that captures this actor, for
+            # get_current_placement_group() in its methods.
+            self.backend.captured_pg_id = sinfo["pg_id"]
         try:
             cls = ser.loads(spec["func"])
             args, kwargs = ser.loads(spec["args"])

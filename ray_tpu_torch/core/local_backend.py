@@ -44,6 +44,13 @@ The internal KV is a dict of this process (reference
 ``ray_tpu/core/local_backend.py:281-300``). ``runtime_env`` is accepted
 and ignored, as the reference's local backend does: one interpreter
 cannot give each task its own environment.
+
+Two departures from the reference's local backend (ROADMAP D35): a
+killed actor's method, which its thread cannot be made to leave, raises
+``ActorError`` at its next ``get`` (the reference's thread runs on to its
+end); and an actor placed with ``placement_group_capture_child_tasks``
+captures its children as a task does (the reference captures a task's
+only), so ``get_current_placement_group()`` inside it names its group.
 """
 
 from __future__ import annotations
@@ -281,6 +288,8 @@ class LocalBackend:
         # blocking get() can give the CPUs back (raylet parity: workers
         # blocked in ray.get release their CPUs).
         self._current_lease = threading.local()
+        # The actor whose executor thread this is (``create_actor``).
+        self._current_actor = threading.local()
         # Cancellation: task ids cancelled pre-run + running-thread idents
         # for cooperative mid-run interruption (cancellation.py).
         self._cancels = CancelRegistry(threading.Lock())
@@ -385,6 +394,12 @@ class LocalBackend:
     def get(self, refs: Sequence[ObjectRef], timeout: float | None = None):
         import time
 
+        actor = getattr(self._current_actor, "state", None)
+        if actor is not None and actor.dead:
+            # A killed actor's running method cannot be stopped in its
+            # thread; it stops here, at its next get, as the reference's
+            # killed worker process stops at once.
+            raise ActorError(f"this actor is dead: {actor.death_cause}")
         deadline = None if timeout is None else time.monotonic() + timeout
         lease: _Lease | None = getattr(self._current_lease, "lease", None)
         released = False
@@ -1213,6 +1228,18 @@ class LocalBackend:
             # constructor sets (e.g. a collective-group context) is visible
             # to subsequent method calls on a max_concurrency=1 actor —
             # matching the reference, where ctor and methods share a process.
+            # This thread's actor: a killed actor's method stops at its next
+            # get (``get``), and an actor placed with
+            # placement_group_capture_child_tasks captures its children, as
+            # a task does (``_plan_resources``).
+            self._current_actor.state = state
+            if plan["capture"]:
+                self._current_pg.info = {
+                    "id": plan["pg"].id,
+                    "bundles": plan["pg"].bundles,
+                    "strategy": plan["pg"].strategy,
+                    "name": plan["pg"].name,
+                }
             if run_ctor:
                 ctor()
             else:

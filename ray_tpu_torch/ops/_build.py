@@ -136,8 +136,14 @@ def raise_on_error(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def launch(counter, name: str, fn, *args) -> None:
     """Call the C launcher ``fn``; raise if it returns a CUDA error, else
-    add one to ``counter[name]``."""
+    add one to ``counter[name]`` (under a lock: threads of one process, such
+    as two Tune trials sharing a card, launch at once, and ``+=`` on a
+    dict is a read and a write)."""
     raise_on_error(name, fn(*args))
-    counter[name] += 1
+    with _COUNT_LOCK:
+        counter[name] += 1

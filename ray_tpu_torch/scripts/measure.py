@@ -399,7 +399,8 @@ def _node_id() -> str:
 def trainer_gpt2_loop(config: dict) -> None:
     """``measure_trainer_gpt2``'s loop, one rank of it. ``config``: cfg
     (a ``GPT2Config``), batch, steps, fail_at, ckpt_root, preempt_at,
-    preempt_file, progress_path.
+    preempt_file, progress_path, and ``lr``, AdamW's learning rate (3e-4,
+    ``AdamWConfig``'s, unless given).
 
     Zeroes this process's kernel counters, builds the state and the batch
     as ``_measure`` does (seed 0, seed 1; with a ``"train"`` dataset shard
@@ -447,6 +448,7 @@ def trainer_gpt2_loop(config: dict) -> None:
     from ray_tpu_torch.train import session
     from ray_tpu_torch.train.checkpoint import (Checkpoint, load_sharded,
                                                 save_sharded)
+    from ray_tpu_torch.train.optim import AdamWConfig
     from ray_tpu_torch.train.train_step import (make_init_fn,
                                                 make_train_step,
                                                 state_shardings)
@@ -472,7 +474,8 @@ def trainer_gpt2_loop(config: dict) -> None:
         mesh = build_mesh(MeshConfig(fsdp=-1), device=dev.type)
         shardings = gpt2_shardings(cfg, mesh)
     step_fn = make_train_step(lambda p, b: gpt2_loss(p, b, cfg), shardings,
-                              mesh)
+                              mesh, optimizer=AdamWConfig(
+                                  lr=config.get("lr", 3e-4)))
     ckpt = session.get_checkpoint()
     if ckpt is None:
         state = make_init_fn(lambda g: gpt2_init(g, cfg, device=dev),
@@ -716,6 +719,408 @@ def measure_trainer_gpt2(cfg, batch: int, *, steps: int = 6,
         "launches": last["launches"],
         "data": last["data"],
     }
+
+
+# -- Tune: trials of GPT-2 training ---------------------------------------------
+
+# Steps each trial of ``tune_gpt2_trial`` started and finished in this
+# process, by trial id (a started step is counted before its first launch,
+# a finished one after its loss is read), under ``_TUNE_CV``.
+_TUNE_STEPS = {"started": {}, "done": {}}
+_TUNE_CV = threading.Condition()
+
+
+def _tune_count(kind: str, trial: str) -> int:
+    with _TUNE_CV:
+        n = _TUNE_STEPS[kind][trial] = _TUNE_STEPS[kind].get(trial, 0) + 1
+        _TUNE_CV.notify_all()
+    return n
+
+
+def tune_gpt2_trial(config: dict) -> None:
+    """A Tune trainable: ``measure_gpt2``'s GPT-2 run at ``config["lr"]``.
+    ``config``: cfg (a ``GPT2Config``), batch, steps, lr, and optionally
+    ckpt_every (steps; 0 or absent: no checkpoint), ckpt_root, params (a
+    numpy parameter tree, ``models/convert.py``, in place of the seed-0
+    init) and tokens (a numpy [batch, seq_len + 1] batch in place of the
+    seed-1 one).
+
+    Builds the state and the batch as ``_measure`` does (seed 0, seed 1)
+    on the session's device, or, from ``tune.get_checkpoint()``,
+    ``load_sharded``s the state the checkpoint names and goes on from its
+    step. Runs ``make_train_step`` at ``AdamWConfig(lr=lr)`` and
+    ``tune.report``s each step: {loss (a float), step and
+    training_iteration (the step, counted from the run's start across
+    restores), lr, t (``perf_counter`` after the step), wall, entry (the
+    wall time this attempt began), load_s (the restore, on the first
+    report of an attempt), save_s}. Every ``ckpt_every``-th step it
+    ``save_sharded``s the state into ``ckpt_root/<trial>/step<n>`` and the
+    report carries ``Checkpoint.from_dict({"sharded": path})``. Each step
+    it starts and finishes is counted in ``_TUNE_STEPS`` (a step a stop
+    cut short counts as started: the stop lands at the report after it)."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch._tree import tree_map
+    from ray_tpu_torch.models.convert import params_from_numpy
+    from ray_tpu_torch.models.gpt2 import gpt2_init, gpt2_loss
+    from ray_tpu_torch.train import session
+    from ray_tpu_torch.train.checkpoint import (Checkpoint, load_sharded,
+                                                save_sharded)
+    from ray_tpu_torch.train.optim import AdamWConfig
+    from ray_tpu_torch.train.train_step import make_init_fn, make_train_step
+
+    entry = time.time()
+    dev = session.get_device()
+    trial = tune.get_trial_id()
+    cfg, batch, steps = config["cfg"], config["batch"], config["steps"]
+    step_fn = make_train_step(lambda p, b: gpt2_loss(p, b, cfg),
+                              optimizer=AdamWConfig(lr=config["lr"]))
+    ckpt = tune.get_checkpoint()
+    load_s = 0.0
+    if ckpt is None:
+        params = config.get("params")
+        init = (gpt2_init if params is None else
+                lambda g, c, device: params_from_numpy(params, device))
+        state = make_init_fn(lambda g: init(g, cfg, device=dev))(
+            torch.Generator(device=dev).manual_seed(0))
+    else:
+        t0 = time.perf_counter()
+        state = tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor)
+                         else x, load_sharded(ckpt.to_dict()["sharded"]))
+        _sync(dev)
+        load_s = time.perf_counter() - t0
+    if config.get("tokens") is not None:
+        tokens = torch.from_numpy(np.asarray(config["tokens"])).to(dev)
+    else:
+        tokens = torch.randint(
+            0, cfg.vocab_size, (batch, cfg.seq_len + 1), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1))
+    every = config.get("ckpt_every") or 0
+    for i in range(int(state["step"]), steps):
+        _tune_count("started", trial)
+        state, metrics = step_fn(state, {"tokens": tokens})
+        loss = float(metrics["loss"])
+        _tune_count("done", trial)
+        done = i + 1
+        report = {"loss": loss, "step": done, "training_iteration": done,
+                  "lr": config["lr"], "t": time.perf_counter(),
+                  "wall": time.time(), "entry": entry, "load_s": load_s,
+                  "save_s": 0.0}
+        load_s = 0.0
+        keep = None
+        if every and done % every == 0:
+            path = os.path.join(config["ckpt_root"], trial, f"step{done}")
+            t0 = time.perf_counter()
+            save_sharded(state, path)
+            report["save_s"] = time.perf_counter() - t0
+            keep = Checkpoint.from_dict({"sharded": path})
+        tune.report(report, checkpoint=keep)
+
+
+def _recording(cls):
+    """``cls`` (a Tune scheduler) that records each result it is given,
+    in order of arrival, with its decision, the wall time, and whether
+    the trial was sent back to PENDING (a PBT exploit: then the values
+    it took for the mutated keys, and the checkpoint). The runner is not
+    changed."""
+
+    class Recording(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.log = []
+
+        def on_trial_result(self, runner, trial, result):
+            t = time.time()
+            decision = super().on_trial_result(runner, trial, result)
+            rec = {"trial": trial.trial_id, "result": dict(result),
+                   "decision": decision, "wall": t, "decided": time.time()}
+            if trial.status == "PENDING":
+                rec["exploit"] = {
+                    "config": {k: trial.config.get(k)
+                               for k in getattr(self, "mutations", {})},
+                    "checkpoint": (trial.checkpoint.to_dict()
+                                   if trial.checkpoint is not None else None)}
+            self.log.append(rec)
+            return decision
+
+    return Recording
+
+
+class _TrialStub:
+    def __init__(self, trial_id: str):
+        self.trial_id = trial_id
+
+
+def replay_decisions(scheduler, log) -> list:
+    """The decisions ``scheduler`` (a fresh one) makes on ``log``'s
+    results in ``log``'s order, one a record."""
+    return [scheduler.on_trial_result(None, _TrialStub(r["trial"]),
+                                      r["result"]) for r in log]
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _dirs, files in os.walk(path) for f in files)
+
+
+def measure_tune_gpt2(cfg, batch: int, *, lrs, scheduler: str = "asha",
+                      steps: int = 6, max_concurrent: int = 2,
+                      resources=None, ckpt_every: int = 0,
+                      params=None, tokens=None, grace_period: int = 2,
+                      reduction_factor: int = 2,
+                      perturbation_interval: int = 2,
+                      mutations=None, seed: int = 0) -> dict:
+    """GPT-2 trials through ``Tuner.fit`` on the local backend:
+    ``tune.with_resources(tune_gpt2_trial, resources)`` (default
+    ``{"GPU": 0.5}``: two trials share one card, each from its own actor
+    thread) over ``grid_search(lrs)``, metric ``loss``, mode ``min``,
+    ``max_concurrent`` trials at once.
+
+    ``scheduler="asha"``: ``ASHAScheduler(max_t=steps, grace_period,
+    reduction_factor)``. ``"pbt"``: ``PopulationBasedTraining(
+    perturbation_interval, hyperparam_mutations=mutations, seed)``, a
+    checkpoint every ``ckpt_every`` steps; each exploit's first two steps
+    are recomputed here from the donor's checkpoint at the exploit's lr
+    (``exploits[i]["recomputed"]``), before the checkpoints' directory is
+    removed. Either scheduler records what it is given (``_recording``);
+    ``replay`` is a fresh scheduler's decisions on that record.
+
+    This process's kernel counters are set to 0 before the fit and read
+    after every trial's last started step has finished (the runner stops
+    a trial at its next report, so a step it started runs to its end).
+    Returns {trials (per trial: lr, status, error, losses, steps (the
+    reported steps, in order), steps_started, first_report_s (from its
+    attempt's entry), ms_step (the mean interval between consecutive
+    reports of one attempt, less saves), load_s, save_s, attempts), log,
+    decisions, replay, best ({lr, loss, step}), launches, steps_started,
+    wall_s, peak_memory_bytes (this process's, all trials), decide_ms (a
+    report's wall time to its decision), exploits, ckpt_bytes,
+    dirs_left}."""
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+
+    resources = dict(resources or {"GPU": 0.5})
+    device = torch.device("cuda" if resources.get("GPU") else "cpu")
+    if device.type == "cuda":
+        resolve_device(device)  # raises without CUDA
+        torch.cuda.reset_peak_memory_stats(device)
+    root = tempfile.mkdtemp(prefix="rtt_tune_ckpt_")
+    if scheduler == "asha":
+        sched = _recording(tune.ASHAScheduler)(
+            metric="loss", mode="min", max_t=steps, grace_period=grace_period,
+            reduction_factor=reduction_factor)
+        fresh = tune.ASHAScheduler(
+            metric="loss", mode="min", max_t=steps, grace_period=grace_period,
+            reduction_factor=reduction_factor)
+    elif scheduler == "pbt":
+        kw = dict(metric="loss", mode="min",
+                  perturbation_interval=perturbation_interval,
+                  hyperparam_mutations=mutations, seed=seed)
+        sched = _recording(tune.PopulationBasedTraining)(**kw)
+        fresh = None  # PBT's decisions act on the runner: not replayed
+    else:
+        raise ValueError(f"scheduler must be 'asha' or 'pbt': {scheduler!r}")
+    with _TUNE_CV:
+        for counts in _TUNE_STEPS.values():
+            counts.clear()
+    _zero_launches()
+    ray_tpu_torch.init()
+    try:
+        t0 = time.perf_counter()
+        grid = tune.Tuner(
+            tune.with_resources(tune_gpt2_trial, resources),
+            param_space={"lr": tune.grid_search(list(lrs)), "cfg": cfg,
+                         "batch": batch, "steps": steps,
+                         "ckpt_every": ckpt_every, "ckpt_root": root,
+                         "params": params, "tokens": tokens},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", scheduler=sched,
+                max_concurrent_trials=max_concurrent)).fit()
+        wall = time.perf_counter() - t0
+        with _TUNE_CV:
+            settled = _TUNE_CV.wait_for(
+                lambda: _TUNE_STEPS["started"] == _TUNE_STEPS["done"],
+                timeout=300)
+            started = dict(_TUNE_STEPS["started"])
+        if not settled:
+            raise RuntimeError(f"trial steps still running: {_TUNE_STEPS}")
+        _sync(device)
+        launches = _launches()
+        exploits = [dict(r["exploit"], trial=r["trial"], wall=r["decided"],
+                         step=r["result"]["step"])
+                    for r in sched.log if "exploit" in r]
+        for ex in exploits:
+            ex["recomputed"] = _recompute_steps(
+                cfg, batch, ex["checkpoint"]["sharded"], ex["config"]["lr"],
+                device, tokens, 2) if ex["checkpoint"] else None
+        ckpt_bytes = {d: _dir_bytes(os.path.join(root, d))
+                      for d in sorted(os.listdir(root))}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    trials = []
+    for r in grid:
+        hist = r.metrics_history
+        attempts = []
+        for m in hist:
+            if not attempts or attempts[-1][0]["entry"] != m["entry"]:
+                attempts.append([])
+            attempts[-1].append(m)
+        gaps = [b["t"] - a["t"] - a["save_s"]
+                for att in attempts for a, b in zip(att, att[1:])]
+        trials.append({
+            "trial_id": r.trial_id, "lr": r.config["lr"],
+            "error": repr(r.error) if r.error is not None else None,
+            "losses": [m["loss"] for m in hist],
+            "steps": [m["step"] for m in hist],
+            "steps_started": started.get(r.trial_id, 0),
+            "first_report_s": hist[0]["wall"] - hist[0]["entry"]
+            if hist else None,
+            "ms_step": sum(gaps) / len(gaps) * 1000 if gaps else None,
+            "load_s": [m["load_s"] for m in hist if m["load_s"]],
+            "save_s": [m["save_s"] for m in hist if m["save_s"]],
+            "attempts": [[m["step"] for m in att] for att in attempts],
+            "attempt_losses": [[m["loss"] for m in att] for att in attempts]})
+    best = grid.get_best_result()
+    return {
+        "trials": trials, "log": sched.log,
+        "decisions": [r["decision"] for r in sched.log],
+        "replay": replay_decisions(fresh, sched.log) if fresh else None,
+        "best": {"lr": best.config["lr"], "loss": best.metrics["loss"],
+                 "step": best.metrics["step"]},
+        "errors": [repr(e) for e in grid.errors],
+        "launches": launches, "steps_started": sum(started.values()),
+        "wall_s": wall,
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                              if device.type == "cuda" else None),
+        "decide_ms": [(r["decided"] - r["result"]["wall"]) * 1000
+                      for r in sched.log],
+        "exploits": exploits, "ckpt_bytes": ckpt_bytes,
+        "dirs_left": os.path.exists(root), "device": device_name(device),
+    }
+
+
+def _recompute_steps(cfg, batch: int, path: str, lr: float, device,
+                     tokens, n: int) -> list:
+    """The losses of ``n`` steps from the state saved at ``path`` at
+    ``AdamWConfig(lr=lr)`` on ``tune_gpt2_trial``'s batch."""
+    from ray_tpu_torch._tree import tree_map
+    from ray_tpu_torch.models.gpt2 import gpt2_loss
+    from ray_tpu_torch.train.checkpoint import load_sharded
+    from ray_tpu_torch.train.optim import AdamWConfig
+    from ray_tpu_torch.train.train_step import make_train_step
+
+    state = tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor)
+                     else x, load_sharded(path))
+    if tokens is not None:
+        toks = torch.from_numpy(np.asarray(tokens)).to(device)
+    else:
+        toks = torch.randint(
+            0, cfg.vocab_size, (batch, cfg.seq_len + 1), device=device,
+            generator=torch.Generator(device=device).manual_seed(1))
+    step_fn = make_train_step(lambda p, b: gpt2_loss(p, b, cfg),
+                              optimizer=AdamWConfig(lr=lr))
+    out = []
+    for _ in range(n):
+        state, metrics = step_fn(state, {"tokens": toks})
+        out.append(float(metrics["loss"]))
+    return out
+
+
+def tune_trainer_gpt2_trial(config: dict) -> None:
+    """A Tune trainable that trains through the trainer (Tune x Train):
+    ``CudaTrainer(trainer_gpt2_loop, {cfg, batch, steps, lr, ckpt_every
+    0}, ScalingConfig(num_workers=1), device=config.get("device"))``. Run
+    in a trial's gang, the trainer's worker takes the gang's other
+    bundle. Reports the trainer's run: {loss (the last), losses, steps,
+    launches (its worker's), worker_pid, pid (this trial's), process (the
+    wall time this trial's process started, ``_process_start_wall``),
+    entry (the wall time the trial began), worker_startup (the worker's
+    ``startup`` marks, ``trainer_gpt2_loop``), first_step_wall, end}. A
+    trainer error is raised."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train.config import ScalingConfig
+    from ray_tpu_torch.train.trainer import CudaTrainer
+
+    entry = time.time()
+    result = CudaTrainer(
+        trainer_gpt2_loop,
+        train_loop_config={"cfg": config["cfg"], "batch": config["batch"],
+                           "steps": config["steps"], "lr": config["lr"],
+                           "ckpt_every": 0, "ckpt_root": None},
+        scaling_config=ScalingConfig(num_workers=1),
+        device=config.get("device")).fit()
+    if result.error is not None:
+        raise result.error
+    hist = [m for m in result.metrics_history if "step" in m]
+    tune.report({"loss": hist[-1]["loss"],
+                 "losses": [m["loss"] for m in hist],
+                 "steps": [m["step"] for m in hist],
+                 "launches": result.metrics_history[-1]["launches"],
+                 "worker_pid": hist[0]["pid"], "pid": os.getpid(),
+                 "process": _process_start_wall(), "entry": entry,
+                 "worker_startup": hist[0]["startup"],
+                 "first_step_wall": hist[0]["wall"], "end": time.time()})
+
+
+def measure_tune_trainer_gpt2(cfg, batch: int, address: str, *, lrs,
+                              steps: int = 3, device=None,
+                              settle_s: float = 10.0) -> dict:
+    """Tune x Train with gangs on a cluster (``address``, a head's): one
+    trial per ``lrs`` entry, each ``tune_trainer_gpt2_trial`` in a gang
+    ``{"bundles": [{"CPU": 1}, {"CPU": 1, "GPU": 1}], "strategy": "PACK"}``
+    (on the CPU, ``device="cpu"``: ``{"CPU": 1}`` for the second), two at
+    a time. The driver connects and disconnects after. Then waits (on the
+    head, at most ``settle_s``) for no placement group CREATED or PENDING
+    and every CPU and GPU free again. Returns {trials (lr, error, losses, steps, launches, pid,
+    worker_pid, entry, first_step_wall, end), wall_s, live_pgs, pgs (every
+    group the head knows, by state), available (the cluster's free
+    resources then), settle_s}."""
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.util.placement_group import placement_group_table
+
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    worker_bundle = {"CPU": 1} if on_cpu else {"CPU": 1, "GPU": 1}
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(address=address)
+    try:
+        t0, fit_wall = time.perf_counter(), time.time()
+        grid = tune.Tuner(
+            tune_trainer_gpt2_trial,
+            param_space={"lr": tune.grid_search(list(lrs)), "cfg": cfg,
+                         "batch": batch, "steps": steps, "device": device},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        max_concurrent_trials=2),
+            resources_per_trial={"bundles": [{"CPU": 1}, worker_bundle],
+                                 "strategy": "PACK"}).fit()
+        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        total = ray_tpu_torch.cluster_resources()
+        while True:
+            table = placement_group_table() or {}
+            live = [k for k, v in table.items()
+                    if v.get("state") in ("CREATED", "PENDING")]
+            available = ray_tpu_torch.available_resources()
+            settle = time.perf_counter() - t1
+            if settle >= settle_s or not live and all(
+                    available.get(k, 0.0) == total[k]
+                    for k in ("CPU", "GPU") if k in total):
+                break
+            time.sleep(0.1)
+    finally:
+        ray_tpu_torch.shutdown()
+    trials = [{"lr": r.config["lr"],
+               "error": repr(r.error) if r.error is not None else None,
+               **{k: (r.metrics or {}).get(k) for k in (
+                   "losses", "steps", "launches", "pid", "worker_pid",
+                   "process", "entry", "worker_startup", "first_step_wall",
+                   "end")}}
+              for r in grid]
+    states: dict = {}
+    for v in table.values():
+        states[v.get("state")] = states.get(v.get("state"), 0) + 1
+    return {"trials": trials, "wall_s": wall, "fit_wall": fit_wall,
+            "live_pgs": live, "pgs": states, "available": available,
+            "settle_s": settle}
 
 
 def gpt2_score(params, batch: dict, cfg=None) -> dict:

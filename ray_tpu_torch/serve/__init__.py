@@ -132,8 +132,8 @@ def _resolve_graph_arg(value, controller, used_names: dict):
     if isinstance(value, Deployment):
         value = value.bind()
     if isinstance(value, Application):
-        inner = _deploy_app(value, controller, route_prefix=None,
-                            used_names=used_names)
+        inner, _ = _deploy_app(value, controller, route_prefix=None,
+                               used_names=used_names)
         return DeploymentHandle(inner)
     if isinstance(value, (list, tuple)):
         resolved = [_resolve_graph_arg(v, controller, used_names)
@@ -168,7 +168,7 @@ def _deploy_app(target: "Application", controller,
     used_names[final] = count + 1
     if count:
         final = f"{final}_{count + 1}"
-    ray_tpu_torch.get(
+    version = ray_tpu_torch.get(
         controller.deploy.remote(
             final,
             dep.func_or_class,
@@ -183,7 +183,7 @@ def _deploy_app(target: "Application", controller,
         ),
         timeout=120,
     )
-    return final
+    return final, version
 
 
 def run(target: "Application | Deployment", *, name: Optional[str] = None,
@@ -195,8 +195,19 @@ def run(target: "Application | Deployment", *, name: Optional[str] = None,
         target = target.bind()
     controller = get_or_create_controller()
     prefix = route_prefix if route_prefix is not None else "__use_deployment__"
-    deployed = _deploy_app(target, controller, name=name, route_prefix=prefix)
+    deployed, version = _deploy_app(target, controller, name=name,
+                                    route_prefix=prefix)
+    _sync_proxies(controller, version)
     return DeploymentHandle(deployed)
+
+
+def _sync_proxies(controller, version: int) -> None:
+    """Return once every HTTP proxy routes by table ``version`` or a newer
+    one: the long-poll push may still be in flight when ``deploy``
+    returns, and a request sent then would miss its route."""
+    if _proxy_handle is not None:
+        ray_tpu_torch.get(_proxy_handle.sync_to.remote(version), timeout=60)
+    ray_tpu_torch.get(controller.sync_proxies.remote(version), timeout=60)
 
 
 def get_deployment_handle(name: str) -> DeploymentHandle:

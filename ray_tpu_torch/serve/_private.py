@@ -443,6 +443,20 @@ class ServeController:
         with self._lock:
             return {nid: p["port"] for nid, p in self._proxies.items()}
 
+    def sync_proxies(self, version: int) -> bool:
+        """Bring every proxy of the fleet to table ``version`` or newer.
+        A proxy that does not answer is left to the reconcile loop: the
+        proxy that replaces it reads the current table when it starts."""
+        with self._lock:
+            handles = [p["handle"] for p in self._proxies.values()]
+        refs = [h.sync_to.remote(version) for h in handles]
+        for ref in refs:
+            try:
+                ray_tpu_torch.get(ref, timeout=30)
+            except Exception:
+                pass
+        return True
+
     def _reconcile_proxies(self):
         with self._proxy_pass_lock:
             self._reconcile_proxies_locked()
@@ -1391,7 +1405,21 @@ def make_asgi_app():
         finally:
             tracing.finish_span(http_span, status)
 
+    def sync_to(version: int) -> int:
+        """Fetch the table now unless this proxy already routes by
+        ``version`` or a newer one; ``serve.run`` calls it so that a
+        request sent as it returns finds its route."""
+        with state_lock:
+            behind = state["version"] < version
+        if behind:
+            with tracing.suppressed():  # config plane, not user traffic
+                apply_table(*ray_tpu_torch.get(
+                    controller.get_routing_table.remote(), timeout=30))
+        with state_lock:
+            return state["version"]
+
     app.table_listener = listener  # so the proxy can stop it
+    app.sync_to = sync_to
     return app
 
 
@@ -1503,6 +1531,9 @@ class HTTPProxy:
 
     def get_port(self) -> int:
         return self.port
+
+    def sync_to(self, version: int) -> int:
+        return self._app.sync_to(version)
 
     def stop(self):
         self._app.table_listener.stopped = True

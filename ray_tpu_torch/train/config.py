@@ -85,8 +85,16 @@ class CheckpointConfig:
 
 @dataclass
 class RunConfig:
-    """The reference's ``name``, ``storage_path``, ``verbose`` and ``stop``
-    (Tune's) are left out: the trainer reads none of them."""
+    """The reference's fields (``ray_tpu/train/config.py RunConfig``). The
+    trainer reads ``failure_config`` and ``checkpoint_config``; Tune reads
+    ``name`` and ``storage_path`` (where its experiment state is kept, a
+    local directory or a ``file://`` URI) and ``stop`` (a trial's stop
+    condition: a ``Stopper``, a ``{metric: threshold}`` dict or a
+    callable). The reference's ``verbose`` is left out: nothing reads
+    it."""
 
+    name: Optional[str] = None
+    storage_path: Optional[str] = None
     failure_config: FailureConfig = field(default_factory=FailureConfig)
     checkpoint_config: CheckpointConfig = field(default_factory=CheckpointConfig)
+    stop: Optional[object] = None

@@ -68,6 +68,7 @@ from ray_tpu_torch.train.config import (
 from ray_tpu_torch.util import goodput as _goodput
 from ray_tpu_torch.util import tracing as _tracing
 from ray_tpu_torch.util.placement_group import (
+    get_current_placement_group,
     placement_group,
     placement_group_table,
     remove_placement_group,
@@ -229,21 +230,49 @@ def _destroy_process_group(timeout: float = 10.0) -> None:
     t.join(timeout)
 
 
+def _captured_bundles(pg, scaling: ScalingConfig,
+                      num_workers: int) -> List[int]:
+    """The bundles of a captured group (a Tune trial's gang) the workers
+    take: those after bundle 0 (the trial's own, as Ray Tune's
+    ``PlacementGroupFactory`` puts the trainable first) that hold a
+    worker's resources, in order. Raises when fewer than ``num_workers``
+    do: the workers never leave the gang for other resources."""
+    need = scaling.worker_resources()
+    fit = [i for i, b in enumerate(pg.bundle_specs)
+           if i > 0 and all(b.get(k, 0.0) >= v for k, v in need.items())]
+    if len(fit) < num_workers:
+        raise ValueError(
+            f"the placement group {pg.id} this trainer runs in has "
+            f"{len(fit)} bundles past its first for {num_workers} workers "
+            f"of {need}: {pg.bundle_specs}")
+    return fit[:num_workers]
+
+
 class WorkerGroup:
     """N worker actors inside one placement group
     (``train/_internal/worker_group.py:92``).
 
     Default (fixed gang): owns a fresh group sized for the full
-    ``scaling.num_workers``. Elastic: the trainer passes the ONE
-    long-lived group it holds across attempts and the bundle indices
-    this attempt runs on."""
+    ``scaling.num_workers`` -- unless the trainer runs inside a group that
+    captures its children (a Tune trial's gang): then the workers take
+    that group's bundles past the first (``_captured_bundles``), and the
+    group stays its owner's, as in Ray Train's ``BackendExecutor``; the
+    reference always makes its own group, which a trial's gang holding
+    the node's only GPU would leave unplaceable (ROADMAP D36). Elastic:
+    the trainer passes the ONE long-lived group it holds across attempts
+    and the bundle indices this attempt runs on."""
 
     def __init__(self, scaling: ScalingConfig,
                  num_workers: Optional[int] = None,
                  pg=None, bundle_indices: Optional[List[int]] = None):
         self.scaling = scaling
-        self.owns_pg = pg is None
         self.num_workers = num_workers or scaling.num_workers
+        if pg is None and bundle_indices is None:
+            pg = get_current_placement_group()
+            if pg is not None:
+                bundle_indices = _captured_bundles(pg, scaling,
+                                                   self.num_workers)
+        self.owns_pg = pg is None
         if pg is None:
             bundles = scaling.as_placement_group_bundles()
             pg = placement_group(

@@ -269,6 +269,15 @@ class GoodputLedger:
                     max(self.rank_step_s.values()) / fastest, 3)
         return out
 
+    def snapshot(self) -> dict:
+        """Non-mutating read (``ray_tpu/util/goodput.py:370``): an OPEN
+        downtime interval is included in the view (up to now) but stays
+        open, so a poll can never swallow downtime that the eventual
+        recovery should attribute. A Tune trial's ``goodput()``."""
+        open_s = (time.monotonic() - self._down_since) \
+            if self._down_since is not None else 0.0
+        return self._view(open_s)
+
     def summary(self) -> dict:
         """Terminal rollup: the trial is over, so an interval still open
         is closed (attributed, not counted as a restart)."""

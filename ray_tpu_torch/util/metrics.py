@@ -648,15 +648,30 @@ def prometheus_text() -> str:
     return "\n".join(lines) + "\n"
 
 
-def merge_prometheus(chunks: Sequence[str]) -> str:
+def merge_prometheus(chunks: Sequence[str],
+                     owners: Optional[Sequence[Optional[str]]] = None) -> str:
     """Merge several exposition bodies into one scrape-able document
     (the head's ``/metrics/cluster`` federation). ``# HELP``/``# TYPE``
     headers are kept once per metric family, and duplicate SERIES
-    (same metric name + label set) keep their first-seen sample: the
+    (same metric name + label set) keep their first-seen place: the
     agents of an in-process cluster share ONE process registry, so
     every agent reports the same series (possibly re-sampled between
     chunk renders -- identity is the name+labels, not the whole line);
-    per-node series stay distinct through their ``node_id`` tag."""
+    per-node series stay distinct through their ``node_id`` tag.
+
+    ``owners`` names the node each chunk came from (None for the
+    head's). A series tagged ``node_id="X"`` then takes its sample from
+    X's own chunk where X's carries it: X refreshes its gauges just
+    before it renders, while another render of the shared registry, made
+    concurrently, can hold X's series as X last refreshed them."""
+    preferred: dict = {}
+    for chunk, owner in zip(chunks, owners or ()):
+        if owner is None:
+            continue
+        tags = (f'{{node_id="{owner}"', f',node_id="{owner}"')
+        for line in (chunk or "").splitlines():
+            if not line.startswith("#") and any(t in line for t in tags):
+                preferred.setdefault(line.rsplit(" ", 1)[0], line)
     seen_headers: set = set()
     seen_series: set = set()
     out: List[str] = []
@@ -675,6 +690,7 @@ def merge_prometheus(chunks: Sequence[str]) -> str:
                 if series in seen_series:
                     continue
                 seen_series.add(series)
+                line = preferred.get(series, line)
             out.append(line)
     return "\n".join(out) + "\n"
 

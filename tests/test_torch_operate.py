@@ -270,6 +270,53 @@ def test_metrics_cluster_carries_both_nodes_store_gauges(cluster):
         gcs.close()
 
 
+def test_metrics_cluster_takes_an_agents_fresh_gauge_over_the_heads(
+        cluster, monkeypatch):
+    """The head and the agents of an in-process cluster share one
+    registry, and a duplicate series keeps its first-seen sample: an
+    agent's render, made right after it refreshed its device gauges, must
+    win over the head's copy of the previous refresh (phase 12 of
+    ``chip_smoke.py`` holds the scraped gauge to ``device_stats``)."""
+    tags = {"node_id": cluster.nodes[0].node_id, "worker_id": "w-probe",
+            "device": "cuda:0"}
+    metrics.DEVICE_MEM_IN_USE.set(111.0, tags=tags)  # the last refresh
+    fresh = metrics.prometheus_text().replace(
+        'device="cuda:0"} 111.0', 'device="cuda:0"} 222.0')
+    assert 'device="cuda:0"} 222.0' in fresh
+    monkeypatch.setattr(cluster.head, "_fanout_agents",
+                        lambda method, timeout: [(tags["node_id"], fresh)])
+    try:
+        parsed = metrics.parse_prometheus(cluster.head.cluster_metrics_text())
+    finally:
+        metrics.DEVICE_MEM_IN_USE.remove(tags=tags)
+    got = {dict(k)["worker_id"]: v for k, v in parsed[
+        "ray_tpu_device_memory_bytes_in_use"].items()}
+    assert got["w-probe"] == 222.0
+
+
+def test_metrics_cluster_takes_a_nodes_series_from_its_own_agent(
+        cluster, monkeypatch):
+    """Two agents render the shared registry at once: the one rendered
+    first carries node B's gauge as B last refreshed it, B's own render
+    the value B refreshed just before; the scrape takes B's (phase 12 of
+    ``chip_smoke.py`` failed on the other agent's copy)."""
+    a, b = "node-a-probe", cluster.nodes[0].node_id
+    tags = {"node_id": b, "worker_id": "w-probe-b", "device": "cuda:0"}
+    metrics.DEVICE_MEM_IN_USE.set(111.0, tags=tags)  # B's last refresh
+    stale = metrics.prometheus_text()
+    fresh = stale.replace('device="cuda:0"} 111.0', 'device="cuda:0"} 222.0')
+    assert 'device="cuda:0"} 222.0' in fresh
+    monkeypatch.setattr(cluster.head, "_fanout_agents",
+                        lambda method, timeout: [(a, stale), (b, fresh)])
+    try:
+        parsed = metrics.parse_prometheus(cluster.head.cluster_metrics_text())
+    finally:
+        metrics.DEVICE_MEM_IN_USE.remove(tags=tags)
+    got = {dict(k)["worker_id"]: v for k, v in parsed[
+        "ray_tpu_device_memory_bytes_in_use"].items()}
+    assert got["w-probe-b"] == 222.0
+
+
 def test_a_dead_nodes_series_are_pruned(cluster):
     extra = cluster.add_node(num_cpus=1)
     cluster.wait_for_nodes()

@@ -130,6 +130,14 @@ SLICE_MODULES = [
     "ray_tpu_torch.util.stack_sampler",
     "ray_tpu_torch.cluster.signals",
     "ray_tpu_torch.scripts.signal_bench",
+    "ray_tpu_torch.tune",
+    "ray_tpu_torch.tune.search_space",
+    "ray_tpu_torch.tune.stopper",
+    "ray_tpu_torch.tune.schedulers",
+    "ray_tpu_torch.tune.search",
+    "ray_tpu_torch.tune.syncer",
+    "ray_tpu_torch.tune.trial_runner",
+    "ray_tpu_torch.tune.tuner",
 ]
 
 
@@ -391,6 +399,36 @@ def test_wrappers_reject_other_devices():
     x = torch.empty(2, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fn.gelu_fwd(x)
+
+
+def test_launch_counts_stay_exact_across_threads():
+    """Two Tune trials on one card launch from two threads of one process
+    at once: with a tiny switch interval and more threads than cores, no
+    launch's count is lost (a ``Counter``'s first count of a name goes
+    through its Python ``__missing__``, where a thread can be switched
+    out between the read and the write)."""
+    import collections
+    import threading
+
+    from ray_tpu_torch.ops._build import launch
+
+    counter = collections.Counter()
+    n_threads, per_thread = 2 * (os.cpu_count() or 2) + 2, 20000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            launch(counter, f"k{i}", lambda: 0) for i in range(per_thread)])
+            for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert set(counter.values()) == {n_threads}
+    assert len(counter) == per_thread
 
 
 def test_peak_table_refuses_unknown_cards():
@@ -1289,3 +1327,52 @@ def test_a_handle_call_reaches_a_gpu_replica_on_the_card(cuda):
         finally:
             ray_tpu_torch.shutdown()
             c.shutdown()
+
+
+@pytest.mark.gpu
+def test_a_half_gpu_trial_trains_on_cuda(cuda):
+    """``tune.with_resources(fn, {"GPU": 0.5})`` on the local backend: two
+    trials share the card, each computing on ``cuda`` from its own actor
+    thread (the session's device)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_tune_loops as L
+
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+
+    ray_tpu_torch.shutdown()
+    try:
+        grid = tune.Tuner(
+            tune.with_resources(L.device_trial, {"GPU": 0.5}),
+            param_space={"x": tune.grid_search([1.0, 2.0])},
+            tune_config=tune.TuneConfig(metric="value", mode="max",
+                                        max_concurrent_trials=2)).fit()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert not grid.errors, grid.errors
+    assert sorted(r.metrics["value"] for r in grid) == [4.0, 16.0]
+    assert {r.metrics["result_device"] for r in grid} == {"cuda:0"}
+    assert {r.metrics["device"] for r in grid} == {"cuda"}
+
+
+def test_a_gpu_trial_on_a_node_without_one_ends_in_error():
+    """A ``{"GPU": 1}`` trial on a local backend that advertises no GPU
+    (on either box) is infeasible: it ends in ERROR, and its trainable
+    never runs, on the CPU or anywhere."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_tune_loops as L
+
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=2, resources={"GPU": 0})
+    try:
+        grid = tune.Tuner(tune.with_resources(L.cpu_probe_trial, {"GPU": 1}),
+                          param_space={"x": tune.grid_search([1])},
+                          tune_config=tune.TuneConfig(metric="ran")).fit()
+    finally:
+        ray_tpu_torch.shutdown()
+    (r,) = grid
+    assert isinstance(r.error, ValueError) and "infeasible" in str(r.error)
+    assert r.metrics is None and r.metrics_history == []

@@ -195,6 +195,65 @@ def test_http_proxy_routes_by_prefix():
     assert _post(port, "/nope", {})[0] == 404
 
 
+def test_http_proxy_routes_a_deployment_its_push_has_not_reached(
+        monkeypatch):
+    """``serve.run`` returns only once the proxy routes by the new table:
+    a deployment routes at once (here the long-poll pushes are stopped, so
+    only ``serve.run``'s sync can bring it)."""
+    from ray_tpu_torch.serve import _private as sp
+
+    monkeypatch.setattr(sp._TableListener, "_loop", lambda self: None)
+    port = serve.start_http_proxy()
+
+    @serve.deployment(route_prefix="/late")
+    def late(payload):
+        return {"result": payload["x"] + 1}
+
+    serve.run(late.bind())
+    assert _post(port, "/late", {"x": 1}) == (200, {"result": 2})
+    assert _post(port, "/nope", {})[0] == 404
+
+
+def test_http_404s_ask_the_controller_nothing(monkeypatch):
+    """A route miss answers 404 from the proxy's own table. With the
+    controller's table fetch hung, 64 misses in flight together all answer
+    and a routed request goes through beside them."""
+    from ray_tpu_torch.serve import _private as sp
+
+    @serve.deployment(route_prefix="/kept")
+    def kept(payload):
+        return {"result": payload["x"]}
+
+    serve.run(kept.bind())
+    port = serve.start_http_proxy()
+    assert _post(port, "/kept", {"x": 2}) == (200, {"result": 2})
+    release = threading.Event()
+    real = sp.ServeController.get_routing_table
+
+    def hung(self):
+        release.wait(60)
+        return real(self)
+
+    monkeypatch.setattr(sp.ServeController, "get_routing_table", hung)
+    codes = []
+    misses = [threading.Thread(
+        target=lambda i=i: codes.append(
+            _post(port, f"/typo{i}", {}, timeout=60)[0]))
+        for i in range(64)]
+    try:
+        for t in misses:
+            t.start()
+        assert _post(port, "/kept", {"x": 3}, timeout=20) == (
+            200, {"result": 3})
+        for t in misses:
+            t.join(timeout=20)
+        assert codes == [404] * 64
+    finally:
+        release.set()
+        for t in misses:
+            t.join(timeout=60)
+
+
 def test_dead_replica_replaced_by_controller():
     from ray_tpu_torch.serve import _private as sp
 
